@@ -1,0 +1,130 @@
+"""Compute cores for the (non-windowed) quantile-mapping schemes.
+
+Each core is a plain function over dense tensors (time last) plus static
+group-index tensors, on whatever device the data lies — the counterpart of
+the reference's decorated compute functions (``_adjustment.py``).
+
+Grouped lookups and broadcasts use *bracket partitions*
+(``GroupIndexes.bracket_partitions``): static -1-padded partitions of the
+time axis by bracketing padded group, so every step is either a batched
+per-partition table evaluation or a gather from a long source axis.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..ops.correction import apply_correction, get_correction
+from ..ops.interp import interp1d_table, interp_grouped_partitioned
+from ..ops.quantile import grouped_nan_quantile, nan_quantile
+from ..ops.segment import gather_groups, grouped_rank
+from ..utils.tensor import as_tensor
+
+__all__ = [
+    "broadcast_groups_core",
+    "eqm_train_core",
+    "eqm_train_from_raw",
+    "qdm_adjust_core",
+    "qdm_train_adjust_core",
+    "qm_adjust_core",
+]
+
+
+def _pad_cyclic_factors(f):
+    """[..., G] -> [..., G+2] with one wrapped group on each side."""
+    if f.shape[-1] > 1:
+        return torch.cat([f[..., -1:], f, f[..., :1]], dim=-1)
+    return f
+
+
+def broadcast_groups_core(f, brackets):
+    """Map per-group factors [..., G] onto the time axis [..., T] using
+    bracket partitions (reference ``u.broadcast``, utils.py:180-248)."""
+    part0, g0, slot0, part1, g1, slot1, w = brackets
+    f = as_tensor(f)
+    # partitions index padded groups (G+2) unless G == 1
+    f_p = _pad_cyclic_factors(f) if part0.shape[0] != f.shape[-1] else f
+
+    def eval_part(part, grp, slot):
+        Lp = part.shape[-1]
+        grid = f_p[..., None].expand(f_p.shape + (Lp,))
+        return grid[..., grp, slot]
+
+    v0 = eval_part(part0, g0, slot0)
+    if part1 is None:
+        return v0
+    v1 = eval_part(part1, g1, slot1)
+    ww = w.to(v0.dtype)
+    return (1 - ww) * v0 + ww * v1
+
+
+def eqm_train_core(refg, histg, quantiles, *, kind: str):
+    """EQM train on one batch: per-group quantiles of ref & hist, correction
+    factors (reference ``_adjustment.py:193-286``).
+
+    refg/histg: [..., G, L] gathered group matrices (NaN padded);
+    quantiles: [nq].  Returns (af, hist_q): [..., G, nq].
+    """
+    ref_q = nan_quantile(refg, quantiles, axis=-1)
+    hist_q = nan_quantile(histg, quantiles, axis=-1)
+    af = get_correction(hist_q, ref_q, kind)
+    return af, hist_q
+
+
+def qm_adjust_core(sim, hist_q, af, brackets, *, kind: str, interp: str, extrapolation: str, tables_compact: bool = False):
+    """QM adjust (reference ``_adjustment.py:594-676``): look up each sim value
+    in the per-group (hist_q -> af) table, apply the correction.
+
+    ``tables_compact``: the tables are quantile-trained (ascending, NaN rows
+    whole) — skip the argsort NaN compaction (bit-identical there)."""
+    if hist_q.shape[-2] == 1:
+        af_t = interp1d_table(sim, hist_q[..., 0, :], af[..., 0, :], interp, extrapolation)
+    else:
+        af_t = interp_grouped_partitioned(
+            sim, hist_q, af, *brackets, interp, extrapolation, tables_compact=tables_compact
+        )
+    return apply_correction(sim, af_t, kind)
+
+
+def qdm_adjust_core(sim, af, quantiles, brackets, gather_sim, group_idx, scatter_slot, *, kind: str, interp: str, extrapolation: str):
+    """QDM adjust (reference ``_adjustment.py:783-886``): per-group pct rank of
+    sim, then af looked up at (rank, group) and applied.
+
+    Returns (scen, sim_q)."""
+    sim_q = grouped_rank(sim, gather_sim, group_idx, scatter_slot, pct=True)
+    G, nq = af.shape[-2:]
+    qtab = as_tensor(quantiles, dtype=sim.dtype, device=sim.device).expand(af.shape[:-2] + (G, nq))
+    if G == 1:
+        af_t = interp1d_table(sim_q, qtab[..., 0, :], af[..., 0, :], interp, extrapolation)
+    else:
+        # xq is the ascending quantile nodes and af is train output (whole-row
+        # NaNs only): the argsort compaction is the identity — skip it
+        af_t = interp_grouped_partitioned(
+            sim_q, qtab, af, *brackets, interp, extrapolation, tables_compact=True
+        )
+    return apply_correction(sim, af_t, kind), sim_q
+
+
+def qdm_train_adjust_core(ref, hist, sim, gather_idx, group_idx, scatter_slot, brackets, quantiles, *, kind: str, interp: str, extrapolation: str):
+    """Fused QDM train + adjust — the headline single step.
+
+    Grouped quantile estimation of ref & hist (gather->sort->lerp),
+    adjustment factors, per-group pct ranks of sim, factor lookup,
+    correction.  Purely batch-parallel over leading dims.
+    """
+    ref_q = nan_quantile(gather_groups(ref, gather_idx), quantiles, axis=-1)
+    hist_q = nan_quantile(gather_groups(hist, gather_idx), quantiles, axis=-1)
+    af = get_correction(hist_q, ref_q, kind)
+    scen, _ = qdm_adjust_core(
+        sim, af, quantiles, brackets, gather_idx, group_idx, scatter_slot,
+        kind=kind, interp=interp, extrapolation=extrapolation,
+    )
+    return scen
+
+
+def eqm_train_from_raw(ref, hist, gather_idx, quantiles, *, kind: str):
+    """EQM train straight from [..., T] tensors with memory-bounded chunking
+    over groups (no full [..., G, L] gather materialized)."""
+    ref_q = grouped_nan_quantile(ref, gather_idx, quantiles)
+    hist_q = grouped_nan_quantile(hist, gather_idx, quantiles)
+    return get_correction(hist_q, ref_q, kind), hist_q
