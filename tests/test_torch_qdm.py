@@ -178,7 +178,7 @@ def test_trained_by_reference_loads_in_port(tmp_path, e2e, e2e_port, cls):
 @pytest.mark.parametrize("train_kw,adjust_kw,item", [
     (dict(jitter_under_thresh_value="0.1 mm/d"), None, "A7"),
     (dict(adapt_freq_thresh="0.1 mm/d"), None, "A7"),
-    (dict(group=xp.Grouper("time.dayofyear", window=31)), None, "A4"),
+    (dict(jitter_over_thresh_value="1 mm/d", jitter_over_thresh_upper_bnd="10 mm/d"), None, "A7"),
     (dict(group="time.month"), dict(interp="cubic"), "A7"),
 ])
 def test_unported_options_raise(e2e_port, train_kw, adjust_kw, item):

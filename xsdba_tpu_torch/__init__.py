@@ -3,10 +3,11 @@
 The PyTorch/CUDA port of ``xsdba_tpu``: the same containers, time grouping
 lowered to static indexes, and train/adjust schemes, as plain functions over
 tensors on whatever device the data lies.  On an NVIDIA GPU the grouped
-quantile-table lookup runs in a hand-written CUDA kernel
-(``ops/cuda/interp_kernel.py``).  Ported so far: EmpiricalQuantileMapping and
-QuantileDeltaMapping without preprocessing or windowed dayofyear groups
-(ROADMAP.md lists the rest).
+quantile-table lookup (``ops/cuda/interp_kernel.py``) and the windowed
+quantile's merge engine (``ops/merge.py``) run in hand-written CUDA kernels.
+Ported so far: EmpiricalQuantileMapping and QuantileDeltaMapping without
+preprocessing, with plain and windowed groupings (ROADMAP.md lists the
+rest).
 """
 
 from .models import EmpiricalQuantileMapping, QuantileDeltaMapping

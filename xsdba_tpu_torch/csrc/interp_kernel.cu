@@ -8,14 +8,15 @@
 // and the kernel computes exactly what the twin computes, the single-node
 // guard y1 = isnan(y1) ? y0 : y1 included.
 //
-// Bound: bytes.  Each value is read once and each result written once
-// (4 + 4 bytes per element, about 2 x 133 MB per call at the [512, 14, 4650]
-// headline partition), while a row's table is at most 64 + 64 floats.  So one
-// block holds its row's table in shared memory and its threads stream the
-// row's values with coalesced loads; no intermediate touches device memory.
-// This version stops short of that floor: the locate step counts xs[k] <= v
-// over all nq nodes, nq shared-memory loads per value, and on an H100 80GB
-// HBM3 (700 W) that loop holds it to about 505 GB/s at the headline shape.
+// Bound: its count loop.  The floor is bytes: each value is read once and
+// each result written once (4 + 4 bytes per element, about 2 x 133 MB per
+// call at the [512, 14, 4650] headline partition), while a row's table is at
+// most 64 + 64 floats.  So one block holds its row's table in shared memory
+// and its threads stream the row's values with coalesced loads; no
+// intermediate touches device memory.  This version stops short of that
+// floor: the locate step counts xs[k] <= v over all nq nodes, nq
+// shared-memory loads per value, and on an H100 80GB HBM3 (700 W) that loop
+// holds it to 0.451 ms, about 591 GB/s, at the headline shape.
 //
 // Arithmetic uses the round-to-nearest intrinsics and the build passes
 // -fmad=false, so no FMA contraction separates the kernel from the twin:
@@ -26,6 +27,8 @@
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "device_guard.cuh"
 
 namespace {
 
@@ -88,15 +91,16 @@ interp_table_3d_kernel(const float* __restrict__ v, const float* __restrict__ xs
 }  // namespace
 
 // rows = B * Gp partition rows of lp values each; nq table nodes (<= 64).
-// Launches on `stream` of CUDA device `device` and returns
+// Launches on `stream` of CUDA device `device` (leaving the calling thread's
+// current device as it found it) and returns
 // cudaGetLastError() (0 on success).
 extern "C" int xsdba_interp_table_3d(const void* v, const void* xs, const void* ys,
                                      const void* nvalid, void* out, int rows, int lp,
                                      int nq, int device, void* stream) {
   if (rows < 0 || lp < 0 || nq < 1 || nq > kMaxNq) return static_cast<int>(cudaErrorInvalidValue);
   if (rows == 0 || lp == 0) return 0;
-  const cudaError_t set = cudaSetDevice(device);
-  if (set != cudaSuccess) return static_cast<int>(set);
+  const xsdba::DeviceGuard guard(device);
+  if (guard.status() != cudaSuccess) return static_cast<int>(guard.status());
   const dim3 grid(static_cast<unsigned>(rows), static_cast<unsigned>((lp + kTile - 1) / kTile));
   interp_table_3d_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(v), static_cast<const float*>(xs), static_cast<const float*>(ys),

@@ -1,4 +1,4 @@
-"""Compute cores for the (non-windowed) quantile-mapping schemes.
+"""Compute cores for the quantile-mapping schemes.
 
 Each core is a plain function over dense tensors (time last) plus static
 group-index tensors, on whatever device the data lies — the counterpart of
@@ -8,6 +8,8 @@ Grouped lookups and broadcasts use *bracket partitions*
 (``GroupIndexes.bracket_partitions``): static -1-padded partitions of the
 time axis by bracketing padded group, so every step is either a batched
 per-partition table evaluation or a gather from a long source axis.
+Windowed dayofyear / "5D" groupings train through the merge engine of
+``ops/quantile.py:windowed_group_quantile`` (``eqm_train_windowed``).
 """
 
 from __future__ import annotations
@@ -16,14 +18,16 @@ import torch
 
 from ..ops.correction import apply_correction, get_correction
 from ..ops.interp import interp1d_table, interp_grouped_partitioned
-from ..ops.quantile import grouped_nan_quantile, nan_quantile
+from ..ops.quantile import _static_ok, _static_safe, _windowed_chunks, grouped_nan_quantile, nan_quantile, windowed_group_quantile
 from ..ops.segment import gather_groups, grouped_rank
 from ..utils.tensor import as_tensor
 
 __all__ = [
     "broadcast_groups_core",
+    "eqm_train_adjust_windowed",
     "eqm_train_core",
     "eqm_train_from_raw",
+    "eqm_train_windowed",
     "qdm_adjust_core",
     "qdm_train_adjust_core",
     "qm_adjust_core",
@@ -128,3 +132,47 @@ def eqm_train_from_raw(ref, hist, gather_idx, quantiles, *, kind: str):
     ref_q = grouped_nan_quantile(ref, gather_idx, quantiles)
     hist_q = grouped_nan_quantile(hist, gather_idx, quantiles)
     return get_correction(hist_q, ref_q, kind), hist_q
+
+
+def _eqm_train_windowed_fused(ref, hist, plan, quantiles, *, kind: str, static: bool):
+    """Windowed EQM train of a matching (ref, hist) pair: one stacked pass
+    of the merge engine (grouped quantiles of both) and the factors
+    (reference ``_algos.py:314-343``).  ``static`` picks the host-count
+    extraction; the caller has checked that it is value-safe."""
+    q2 = _windowed_chunks(torch.stack([ref, hist]), plan, quantiles, static=static)
+    return get_correction(q2[1], q2[0], kind), q2[1]
+
+
+def eqm_train_windowed(ref, hist, plan, quantiles, *, kind: str, assume_finite: bool | None = None):
+    """EQM train on a windowed dayofyear / "5D" grouping through the merge
+    engine (``ops/quantile.windowed_group_quantile``): the same tables as
+    ``eqm_train_from_raw`` on that grouping, with each window-1 list sorted
+    once instead of ``window`` times.  A matching pair shares one stacked
+    pass and one finiteness check (reference ``_algos.py:525-601``);
+    ``assume_finite`` pins that pair's extraction: True the static one (the
+    caller promises rows that are all finite or all NaN), False the dynamic
+    one; None checks the data (one host synchronisation)."""
+    ref, hist = as_tensor(ref), as_tensor(hist)
+    if ref.shape == hist.shape and ref.dtype == hist.dtype:
+        finite = _static_safe(ref, hist) if assume_finite is None else bool(assume_finite)
+        static = _static_ok(plan, quantiles) and finite
+        return _eqm_train_windowed_fused(ref, hist, plan, quantiles, kind=kind, static=static)
+    ref_q = windowed_group_quantile(ref, plan, quantiles)
+    hist_q = windowed_group_quantile(hist, plan, quantiles)
+    return get_correction(hist_q, ref_q, kind), hist_q
+
+
+def eqm_train_adjust_windowed(
+    ref, hist, sim, plan, quantiles, brackets, *,
+    kind: str, interp: str = "linear", extrapolation: str = "constant", assume_finite: bool | None = None,
+):
+    """Windowed EQM train + adjust, the doy+window production step:
+    ``eqm_train_windowed`` followed by ``qm_adjust_core`` (reference
+    ``_algos.py:396-522``; eager PyTorch has no program boundary to fuse
+    across, so the reference's fused program is this sequence).  Returns
+    (scen, af, hist_q); ``assume_finite`` as for ``eqm_train_windowed``."""
+    af, hist_q = eqm_train_windowed(ref, hist, plan, quantiles, kind=kind, assume_finite=assume_finite)
+    scen = qm_adjust_core(
+        as_tensor(sim), hist_q, af, brackets, kind=kind, interp=interp, extrapolation=extrapolation, tables_compact=True,
+    )
+    return scen, af, hist_q

@@ -36,9 +36,11 @@ class EmpiricalQuantileMapping(TrainAdjust):
     Parameters and behavior mirror reference ``adjustment.py:414-528``:
     ``nquantiles`` (int -> bin-midpoint nodes), ``kind`` (+/*), ``group``,
     ``max_tail_factor``; adjust takes ``interp`` (nearest/linear) and
-    ``extrapolation`` (constant/nan).  Jitter and frequency adaptation
-    (ROADMAP A7), windowed dayofyear/5D groups (A4) and cubic interpolation
-    (A7) are not ported yet and raise ``NotImplementedError``.
+    ``extrapolation`` (constant/nan).  A windowed dayofyear or "5D" group
+    trains through the merge engine (``ops/quantile.py``, with the CUDA
+    kernels of ``ops/merge.py`` on a GPU).  Jitter and frequency adaptation
+    and cubic interpolation (ROADMAP A7) are not ported yet and raise
+    ``NotImplementedError``.
     """
 
     _allow_diff_calendars = False
@@ -76,11 +78,6 @@ class EmpiricalQuantileMapping(TrainAdjust):
             refa, bdims, bcoords = to_compute(ref)
             hista, _, _ = to_compute(hist)
             gi_t = gi
-        if gi_t.merge_plan is not None:
-            raise NotImplementedError(
-                f"windowed {group.prop} groups (window={group.window}) need the windowed quantile "
-                "engine, not ported to xsdba_tpu_torch yet (ROADMAP A4)."
-            )
         quantiles = quantiles.astype(numpy_dtype(refa.dtype))
         q_t = torch.as_tensor(quantiles, device=refa.device)
         gather_idx = torch.as_tensor(gi_t.gather_idx, device=refa.device)
@@ -91,8 +88,13 @@ class EmpiricalQuantileMapping(TrainAdjust):
             from ..ops.quantile import grouped_nan_quantile
 
             hist_q_raw = grouped_nan_quantile(hista, gather_idx, q_t)
-        # memory-bounded path: no full [..., G, L] gather materialized
-        af, hist_q = _algos.eqm_train_from_raw(refa, hista, gather_idx, q_t, kind=kind)
+        if gi_t.merge_plan is not None:
+            # windowed doy/5D groupings: the merge engine sorts each window-1
+            # list once instead of the window-fold amplified gather
+            af, hist_q = _algos.eqm_train_windowed(refa, hista, gi_t.merge_plan, q_t, kind=kind)
+        else:
+            # memory-bounded path: no full [..., G, L] gather materialized
+            af, hist_q = _algos.eqm_train_from_raw(refa, hista, gather_idx, q_t, kind=kind)
 
         qdim = ("quantiles", quantiles)
         ds = Dataset(

@@ -8,19 +8,18 @@ Linear interpolation, constant extrapolation, NaN for an empty table or a
 NaN value.
 
 It replaces ``xsdba_tpu/ops/pallas/interp_kernel.py:interp_table_pallas_3d``.
-The lookup is bound by bytes: it must read and write ``v`` once (about
-2 x 133 MB per call at the [512, 14, 4650] headline partition) against a
-table of at most 128 floats per row.  So its design keeps each row's table
-in shared memory and streams the row's values through it, with nothing
-written back but the result (``csrc/interp_kernel.cu``).  This first
-version does not reach that floor: on an H100 80GB HBM3 (700 W limit) it
-took 0.53 ms at the headline shape, 505 GB/s of ``v`` read and written,
-held by its 50-step count loop over shared memory.
+The lookup has to read and write ``v`` once (about 2 x 133 MB per call at
+the [512, 14, 4650] headline partition) against a table of at most 128
+floats per row, so its design keeps each row's table in shared memory and
+streams the row's values through it, with nothing written back but the
+result (``csrc/interp_kernel.cu``).  What bounds it on the card is not those
+bytes but its locate step, a count loop over all nq nodes in shared memory:
+on an H100 80GB HBM3 (700 W limit) it took 0.451 ms at the headline shape,
+591 GB/s of ``v`` read and written.
 
-The source is compiled with ``nvcc`` for ``sm_90a`` at the first CUDA call,
-into ``build/kernels/`` beside the package (or ``$XSDBA_TORCH_BUILD_DIR``),
-and bound with ``ctypes``.  Importing this module needs neither ``nvcc`` nor
-a GPU.  A CPU tensor takes the plain twin
+The source is compiled with ``nvcc`` at the first CUDA call by the port's
+shared build (:mod:`._build`) and bound with ``ctypes``.  Importing this
+module needs neither ``nvcc`` nor a GPU.  A CPU tensor takes the plain twin
 :func:`interp_table_3d_reference`; a CUDA tensor launches the kernel or
 raises.
 """
@@ -28,83 +27,19 @@ raises.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-import time
-from pathlib import Path
 
 import torch
 
-__all__ = ["MAX_NQ", "build", "interp_table_3d", "interp_table_3d_reference", "launches"]
+from . import _build
+
+__all__ = ["MAX_NQ", "interp_table_3d", "interp_table_3d_reference", "launches"]
 
 #: kernel launches made by :func:`interp_table_3d` (reset it by assignment)
 launches = 0
 
-_SOURCE = Path(__file__).resolve().parents[2] / "csrc" / "interp_kernel.cu"
 #: widest table the kernel takes (its shared-memory row, ``kMaxNq`` in the source)
 MAX_NQ = 64
-_NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-fmad=false",
-    "-shared", "-Xcompiler", "-fPIC",
-)
-_lib = None
-
-
-def _build_dir() -> Path:
-    env = os.environ.get("XSDBA_TORCH_BUILD_DIR")
-    return Path(env) if env else Path(__file__).resolve().parents[3] / "build" / "kernels"
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    if CUDA_HOME and (Path(CUDA_HOME) / "bin" / "nvcc").exists():
-        return str(Path(CUDA_HOME) / "bin" / "nvcc")
-    raise RuntimeError("nvcc not found: the CUDA lookup kernel needs the CUDA toolkit to build")
-
-
-def build(verbose: bool = False) -> tuple[Path, float]:
-    """Compile ``csrc/interp_kernel.cu`` unless a library built from the same
-    source and flags exists.  Returns (library path, seconds spent building).
-    ``verbose`` adds ``-Xptxas -v`` and prints the compiler's report."""
-    src = _SOURCE.read_bytes()
-    flags = _NVCC_FLAGS + (("-Xptxas", "-v") if verbose else ())
-    tag = hashlib.sha1(src + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
-    out_dir = _build_dir()
-    lib = out_dir / f"libxsdba_interp_{tag}.so"
-    if lib.exists() and not verbose:
-        return lib, 0.0
-    out_dir.mkdir(parents=True, exist_ok=True)
-    t0 = time.perf_counter()
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    res = subprocess.run([_nvcc(), *flags, "-o", tmp, str(_SOURCE)], capture_output=True, text=True)
-    if res.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
-    if verbose:
-        print(res.stdout + res.stderr, flush=True)
-    os.replace(tmp, lib)  # atomic: a concurrent build never sees a partial file
-    return lib, time.perf_counter() - t0
-
-
-def _library():
-    global _lib
-    if _lib is None:
-        path, _ = build()
-        lib = ctypes.CDLL(str(path))
-        fn = lib.xsdba_interp_table_3d
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+_SIGNATURES = {"xsdba_interp_table_3d": ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p], ctypes.c_int)}
 
 
 def interp_table_3d_reference(v, xs, ys, nvalid):
@@ -151,7 +86,7 @@ def interp_table_3d(v, xs, ys, nvalid):
     if out.numel() == 0:
         return out
     stream = torch.cuda.current_stream(v.device).cuda_stream
-    rc = _library().xsdba_interp_table_3d(
+    rc = _build.library("interp_kernel", _SIGNATURES).xsdba_interp_table_3d(
         v.data_ptr(), xs.data_ptr(), ys.data_ptr(), nvalid.data_ptr(), out.data_ptr(),
         B * Gp, Lp, xs.shape[-1], v.device.index, stream,
     )
