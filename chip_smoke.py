@@ -10,35 +10,54 @@ Phases, each reported on lines of its own:
    ``nvcc`` each, all at once);
 3. kernel: each kernel against its plain PyTorch twin, on the card, on the
    inputs its path gives it: the lookup (K1) at the headline partition
-   shape with every edge case it has, bit for bit; the row sort (K3), the
-   level build (K5) and the window fold (K6) on the heavy path's slab of
-   512 rows (ref and hist of 256 sites), and the per-group merge (K4) on the
+   shape and the 2-D lookup (K2) at the headline [512, 54750] rows, each
+   with every edge case it has, bit for bit; the row sort (K3), the level
+   build (K5) and the window fold (K6) on the heavy path's slab of 512 rows
+   (ref and hist of 256 sites), and the per-group merge (K4) on the
    window-5 path's slab, each printing how many values differ under ``==``
-   (-0.0 equals +0.0);
+   (-0.0 equals +0.0); the key–payload row sort (K7) on the selection
+   path's stage-1 input (ref and hist of 224 sites, [448, 54750] ->
+   [448, 65536]), on one row of 2^20 and on rows with ties, +-0.0 and
+   +inf, printing the keys that differ under ``==`` and whether the
+   (key, payload) multisets are equal;
 4. main path: ``QuantileDeltaMapping.train(...).adjust(...)`` on CUDA
    tensors of 512 sites x 150 noleap years, f32, ``nquantiles=50``,
    monthly groups; finite, through K1, and equal to the port's CPU path on
-   the first 8 sites at rtol = atol = 2e-6;
+   the first 8 sites at rtol = atol = 2e-6; then (4b) ``group="time"`` on
+   the same data, through K2;
 5. heavy: ``EmpiricalQuantileMapping.train(group="time.dayofyear",
    window=31).adjust(interp="linear")`` on CUDA tensors of 256 sites x 150
    noleap years (``bench.py``'s heavy data: seed 1, ref ~ N(10, 2), hist ~
    N(12, 3), sim ~ N(13, 3), f32, ``nquantiles=50``); finite, through K3,
-   K5, K6 and K1, and equal on the first 4 sites to the port's CPU path and
-   to the re-sort oracle (``eqm_train_from_raw`` + ``qm_adjust_core``) at
-   rtol = atol = 2e-6; then the same at window 5, through K3 and K4;
-6. times (2 warm-ups, median of 5 and the spread): the fused QDM and
-   windowed EQM steps in gridpoint-years/s (CUDA events), the public calls
-   on the same data (host clock), each kernel against its twin (CUDA
-   events, in turns), the peak device memory of the heavy step and of the
-   heavy public call, and for each fused step the five kernels that take
-   the most device time plus the port's own kernels (``torch.profiler``).
+   K5, K6 and K1, and equal on the first 4 sites to the port's CPU merge
+   path at rtol = atol = 2e-6, and in float64 to the re-sort oracle
+   (``eqm_train_from_raw`` + ``qm_adjust_core``) at 1e-12; then the same at
+   window 5, through K3 and K4;
+   5b. selection: the same public call under
+   ``set_options(selection_on_tpu=True)`` on NUMPY inputs of 224 sites x
+   150 years of the heavy recipe (numpy data runs on the card by default);
+   a CUDA result, finite, through K7 and K1 and no merge kernel, equal on
+   the first 4 sites to the port's CPU path and to the re-sort oracle;
+   again on a NaN-masked copy (2 sites all NaN, 10 % of the values of 4
+   more NaN), first 8 sites;
+6. times (2 warm-ups, median of 5 and the spread): the fused QDM, windowed
+   EQM (merge) and selection steps in gridpoint-years/s (CUDA events), the
+   public calls on the same data (host clock), each kernel against its twin
+   (CUDA events, in turns) and against one PyTorch call computing the same
+   function where there is one, the peak device memory of the heavy and
+   selection steps and of the heavy public call, and for each fused step
+   the five kernels that take the most device time plus the port's own
+   kernels (``torch.profiler``).
 
 Each path's kernel launches are counted from 0 just before it runs and read
 just after; launches made to compare a kernel with its twin do not count.
 The line before the last is one JSON object describing the kernels (K1's
-launches are the QDM path's, K3, K5 and K6's the heavy path's, K4's the
-window-5 path's); the last line is ``{"ok": true, "device": {...}}``.
-Without a CUDA device the script exits with code 2 and prints no result.
+launches are the QDM path's, K2's the ``group="time"`` path's, K3, K5 and
+K6's the heavy path's, K4's the window-5 path's, K7's the selection
+path's), each with its least possible time on an H100 (``bound_ms``: the
+larger of its bytes over 3.35 TB/s and its operations over 67 TFLOP/s); the
+last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device the
+script exits with code 2 and prints no result.
 """
 
 from __future__ import annotations
@@ -55,26 +74,34 @@ import torch
 import xsdba_tpu_torch as xp
 from xsdba_tpu_torch.models._algos import eqm_train_adjust_windowed, eqm_train_from_raw, qdm_train_adjust_core, qm_adjust_core
 from xsdba_tpu_torch.models._wrap import device_brackets
-from xsdba_tpu_torch.ops import merge
+from xsdba_tpu_torch.ops import merge, sort
 from xsdba_tpu_torch.ops.correction import equally_spaced_nodes
 from xsdba_tpu_torch.ops.cuda import _build, interp_kernel
 from xsdba_tpu_torch.ops.interp import _compact_nan_pairs
 from xsdba_tpu_torch.ops.quantile import merge_slab
+from xsdba_tpu_torch.ops.selquant import plan_labels
 
 N_SITES, N_YEARS, NQ = 512, 150, 50
 CHECK_SITES = 8
 HEAVY_SITES, HEAVY_YEARS, HEAVY_WINDOW = 256, 150, 31
 HEAVY_CHECK = 4
 SMALL_WINDOW = 5
+# the selection path: the most sites the fused selection step takes at
+# nq = 50 (2 * S * 365 * 101 * 128 <= 2^31), a multiple of 8
+SEL_SITES, SEL_CHECK, SEL_NAN_CHECK = 224, 4, 8
 TOL = dict(rtol=2e-6, atol=2e-6)
+# H100 SXM peaks: HBM bytes/s, float32 FLOP/s
+PEAK_BYTES, PEAK_OPS = 3.35e12, 67e12
 _SRC = "xsdba_tpu_torch/csrc/"
 _PALLAS = "xsdba_tpu/ops/pallas/"
 KERNELS = {
     "K1": dict(name="interp_table_3d", route="cuda", source=_SRC + "interp_kernel.cu", replaces=_PALLAS + "interp_kernel.py:101"),
+    "K2": dict(name="interp_table_2d", route="cuda", source=_SRC + "interp_kernel.cu", replaces=_PALLAS + "interp_kernel.py:141"),
     "K3": dict(name="sort_rows_alternating", route="cuda", source=_SRC + "merge_kernel.cu", replaces=_PALLAS + "merge_kernel.py:171"),
     "K4": dict(name="merged_window_rows", route="cuda", source=_SRC + "merge_kernel.cu", replaces=_PALLAS + "merge_kernel.py:271"),
     "K5": dict(name="build_levels", route="cuda", source=_SRC + "merge_kernel.cu", replaces=_PALLAS + "merge_kernel.py:477"),
     "K6": dict(name="fold_windows", route="cuda", source=_SRC + "merge_kernel.cu", replaces=_PALLAS + "merge_kernel.py:636"),
+    "K7": dict(name="sort_rows_with_payload", route="cuda", source=_SRC + "sort_kernel.cu", replaces=_PALLAS + "sort_kernel.py:134"),
 }
 
 
@@ -131,9 +158,16 @@ def run_main_path(ref, hist, sim, t):
     return qdm.adjust(_da(sim, t, "sim"), interp="linear").data
 
 
+def run_time_path(ref, hist, sim, t):
+    """The public QDM path with one group (``group="time"``): its adjust
+    looks sim's ranks up in one table per site (K2)."""
+    qdm = xp.QuantileDeltaMapping.train(_da(ref, t, "ref"), _da(hist, t, "hist"), group="time", nquantiles=NQ, kind="+")
+    return qdm.adjust(_da(sim, t, "sim"), interp="linear").data
+
+
 def run_windowed_path(ref, hist, sim, t, window=HEAVY_WINDOW):
     """The public windowed EQM path (dayofyear groups, ``window`` days) on
-    [site, time] tensors (on their device)."""
+    [site, time] data (tensors on their device, numpy on the default one)."""
     eqm = xp.EmpiricalQuantileMapping.train(
         _da(ref, t, "ref"), _da(hist, t, "hist"), group="time.dayofyear", window=window, nquantiles=NQ, kind="+"
     )
@@ -147,6 +181,48 @@ def resort_oracle(ref, hist, sim, t, window=HEAVY_WINDOW):
     q = torch.as_tensor(equally_spaced_nodes(NQ), dtype=ref.dtype, device=ref.device)
     af, hist_q = eqm_train_from_raw(ref, hist, torch.as_tensor(gi.gather_idx, device=ref.device), q, kind="+")
     return qm_adjust_core(sim, hist_q, af, device_brackets(gi, "linear", ref.device), kind="+", interp="linear", extrapolation="constant", tables_compact=True)
+
+
+def nan_masked(arrays, seed=2):
+    """Copies of [site, time] arrays with sites 0-1 all NaN and 10 % of the
+    values of sites 2-5 NaN (the dynamic-count case)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for a in arrays:
+        a = a.copy()
+        a[:2] = np.nan
+        a[2:6][rng.random(a[2:6].shape) < 0.1] = np.nan
+        out.append(a)
+    return out
+
+
+def sort_inputs(B, T, seed=0, device="cpu"):
+    """Keys [B, T] f32 with ties, +-0.0 and +inf, and int32 payloads."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(0, 1, (B, T)).astype(np.float32)
+    x[:, ::7] = 1.5
+    x[:, 1::11] = 0.0
+    x[:, 2::13] = -0.0
+    x[:, 3::17] = np.inf
+    lab = rng.integers(0, 1 << 20, (B, T)).astype(np.int32)
+    return torch.from_numpy(x).to(device), torch.from_numpy(lab).to(device)
+
+
+def selection_stage1(ref, hist, plan):
+    """The selection step's stage-1 input for [site, time] ref and hist:
+    keys [2 * sites, T] (NaN as +inf) and packed labels (0 under NaN)."""
+    x = torch.stack([ref, hist]).reshape(-1, ref.shape[-1])
+    lab = plan_labels(plan, x.device).expand(x.shape)
+    bad = torch.isnan(x)
+    return torch.where(bad, torch.inf, x), torch.where(bad, 0, lab)
+
+
+def pair_sorted(keys, lab):
+    """(key, payload) pairs of each row in lexicographic order."""
+    order = torch.argsort(lab, dim=1, stable=True)
+    keys, lab = torch.gather(keys, 1, order), torch.gather(lab, 1, order)
+    order = torch.argsort(keys, dim=1, stable=True)
+    return torch.gather(keys, 1, order), torch.gather(lab, 1, order)
 
 
 def _nan_equal(a, b):
@@ -166,6 +242,28 @@ def _compare(label, got, want):
     print(f"[kernel] {label} {tuple(got.shape)}: {n_diff} of {got.numel()} values differ from the twin (max abs diff {err:.3g})", flush=True)
     assert n_diff == 0, f"{label}: kernel and twin disagree"
     return err
+
+
+def _compare_sort(label, key, lab):
+    """K7 against its twin: keys under ``==`` and the pair multisets."""
+    got_k, got_l = sort.sort_rows_with_payload(key, lab)
+    want_k, want_l = sort.sort_rows_with_payload_reference(key, lab)
+    torch.cuda.synchronize()
+    n_diff = int((got_k != want_k).sum())
+    gk, gl = pair_sorted(got_k, got_l)
+    wk, wl = pair_sorted(want_k, want_l)
+    same = bool((gk == wk).all() and (gl == wl).all())
+    print(f"[kernel] K7 {label} {tuple(key.shape)} -> {tuple(got_k.shape)}: {n_diff} keys differ from the twin under ==; "
+          f"(key, payload) multisets {'equal' if same else 'DIFFER'}", flush=True)
+    assert n_diff == 0 and same, f"K7 {label}: kernel and twin disagree"
+    return 0.0
+
+
+def _bound(n_bytes, n_ops):
+    """Least time (ms) on an H100 for the bytes moved and the operations
+    done, and which of the two bounds it."""
+    t_bytes, t_ops = n_bytes / PEAK_BYTES * 1e3, n_ops / PEAK_OPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def _time_ms(fn, warmup=2, reps=5):
@@ -253,13 +351,14 @@ def _profile(label, step, ours):
 
 
 def _reset_counts():
-    interp_kernel.launches = 0
+    interp_kernel.launches = interp_kernel.launches_2d = sort.launches = 0
     for k in merge.launches:
         merge.launches[k] = 0
 
 
 def _counts():
-    return dict(merge.launches, interp_table_3d=interp_kernel.launches)
+    return dict(merge.launches, interp_table_3d=interp_kernel.launches, interp_table_2d=interp_kernel.launches_2d,
+                sort_rows_with_payload=sort.launches)
 
 
 def main() -> int:
@@ -288,6 +387,11 @@ def main() -> int:
     lookup = lambda: interp_kernel.interp_table_3d(v, xs, ys, nv)  # noqa: E731
     lookup_twin = lambda: interp_kernel.interp_table_3d_reference(v, xs, ys, nv)  # noqa: E731
     err["K1"] = _compare(f"K1 lookup nq={NQ}", lookup(), lookup_twin())
+    v2, xs2, ys2, nv2 = (a.reshape(N_SITES, -1).contiguous() for a in lookup_inputs(N_SITES, 1, 365 * N_YEARS, NQ, seed=2, device=dev))
+    nv2 = nv2.reshape(N_SITES)
+    lookup2 = lambda: interp_kernel.interp_table_2d(v2, xs2, ys2, nv2)  # noqa: E731
+    lookup2_twin = lambda: interp_kernel.interp_table_2d_reference(v2, xs2, ys2, nv2)  # noqa: E731
+    err["K2"] = _compare(f"K2 row lookup nq={NQ}", lookup2(), lookup2_twin())
 
     th, (href_np, hhist_np, hsim_np) = heavy_problem(HEAVY_SITES, HEAVY_YEARS)
     href, hhist, hsim = (torch.from_numpy(a).to(dev) for a in (href_np, hhist_np, hsim_np))
@@ -312,6 +416,12 @@ def main() -> int:
     merged5 = merge.merged_window_rows(ordered5, SMALL_WINDOW, G, ymax=ymax)
     err["K4"] = _compare(f"K4 per-group merge w={SMALL_WINDOW}", merged5, merge.merged_window_rows_reference(ordered5, SMALL_WINDOW, G, merged5.shape[-1]))
     del merged5
+    sth, sel_np = heavy_problem(SEL_SITES, HEAVY_YEARS)
+    sref, shist, ssim = (torch.from_numpy(a).to(dev) for a in sel_np)
+    key7, lab7 = selection_stage1(sref, shist, plan)
+    err["K7"] = _compare_sort("selection stage 1", key7, lab7)
+    _compare_sort("one row of 2^20", *sort_inputs(1, 1 << 20, seed=4, device=dev))
+    _compare_sort("ties, +-0.0 and +inf", *sort_inputs(3, 1000, seed=3, device=dev))
 
     # 4. headline QDM through the public API
     ref, hist, sim = (torch.from_numpy(a).to(dev) for a in (ref_np, hist_np, sim_np))
@@ -334,6 +444,25 @@ def main() -> int:
           f"{api_s:.3f} s first call; first {CHECK_SITES} sites vs CPU port max abs diff {cpu_err:.3g}", flush=True)
     del scen
 
+    # 4b. the same data with one group: the adjust's lookup is K2
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    tscen = run_time_path(ref, hist, sim, t)
+    torch.cuda.synchronize()
+    api_s = time.perf_counter() - t0
+    time_counts = _counts()
+    assert tscen.is_cuda and tuple(tscen.shape) == (N_SITES, 365 * N_YEARS), (tscen.device, tuple(tscen.shape))
+    assert bool(torch.isfinite(tscen).all()), "group='time': non-finite output"
+    assert time_counts["interp_table_2d"] >= 1, f"group='time' path launched K2 {time_counts['interp_table_2d']} times"
+    want = run_time_path(*(torch.from_numpy(a[cut]) for a in (ref_np, hist_np, sim_np)), t)
+    n_diff = int((tscen[cut].cpu() != want).sum())
+    torch.testing.assert_close(tscen[cut].cpu(), want, **TOL)
+    print(f"[main path] QDM group='time' train+adjust {tuple(tscen.shape)} f32 on {dev}: finite, launches {time_counts}, "
+          f"{api_s:.3f} s first call; first {CHECK_SITES} sites vs CPU port: {n_diff} values differ, max abs diff "
+          f"{_max_abs(tscen[cut].cpu(), want):.3g}", flush=True)
+    del tscen
+
     # 5. heavy windowed EQM through the public API, then the window-5 path
     hcut = slice(0, HEAVY_CHECK)
     small = [torch.from_numpy(a[hcut]) for a in (href_np, hhist_np, hsim_np)]
@@ -350,15 +479,56 @@ def main() -> int:
         assert bool(torch.isfinite(hscen).all()), f"window {window}: non-finite output"
         need = ("sort_rows_alternating", "build_levels", "fold_windows") if window >= 9 else ("sort_rows_alternating", "merged_window_rows")
         assert all(counts[k] >= 1 for k in need + ("interp_table_3d",)), f"window {window}: launches {counts}"
-        cpu = run_windowed_path(*small, th, window)
+        with xp.set_options(selection_backend=False):  # the CPU's default engine is selection
+            cpu = run_windowed_path(*small, th, window)
+        torch.testing.assert_close(hscen[hcut].cpu(), cpu, **TOL)
+        # the merge engine's static extraction rounds the type-7 arithmetic
+        # in numpy, unfused, as the reference's merge engine does, and the
+        # re-sort oracle fuses it as the reference's compiled oracle does
+        # (ROADMAP C2): in float32 a top-tail quantile can move by an ulp of
+        # the virtual index times the gap it interpolates, past 2e-6.  So
+        # the oracle holds the card's merge path in float64 (1e-12, the CPU
+        # tests' float64 tolerance), and float32 holds it to the CPU port
+        small64 = [a.to(dev, torch.float64) for a in small]
+        got64, oracle64 = run_windowed_path(*small64, th, window).cpu(), resort_oracle(*small64, th, window).cpu()
+        torch.testing.assert_close(got64, oracle64, rtol=1e-12, atol=1e-12)
         oracle = resort_oracle(*(a.to(dev) for a in small), th, window).cpu()
         cpu_err, oracle_err = (float((hscen[hcut].cpu() - w).abs().max()) for w in (cpu, oracle))
-        torch.testing.assert_close(hscen[hcut].cpu(), cpu, **TOL)
-        torch.testing.assert_close(hscen[hcut].cpu(), oracle, **TOL)
         print(f"[heavy] EQM dayofyear window={window} train+adjust {tuple(hscen.shape)} f32 on {dev}: finite, launches {counts}, "
-              f"{first_s:.3f} s first call; first {HEAVY_CHECK} sites vs CPU port max abs diff {cpu_err:.3g}, "
-              f"vs re-sort oracle {oracle_err:.3g}", flush=True)
+              f"{first_s:.3f} s first call; first {HEAVY_CHECK} sites vs the CPU port's merge path max abs diff {cpu_err:.3g} "
+              f"(vs the f32 re-sort oracle {oracle_err:.3g}); in float64 vs the re-sort oracle {_max_abs(got64, oracle64):.3g}", flush=True)
         del hscen
+
+    # 5b. the selection engine through the public call, on numpy inputs
+    sel_counts = {}
+    with xp.set_options(selection_on_tpu=True):
+        for tag, arrays, ncheck in (("finite", sel_np, SEL_CHECK), ("NaN-masked", nan_masked(sel_np), SEL_NAN_CHECK)):
+            torch.cuda.synchronize()
+            _reset_counts()
+            t0 = time.perf_counter()
+            sscen = run_windowed_path(*arrays, sth)
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+            counts = sel_counts[tag] = _counts()
+            assert sscen.is_cuda and tuple(sscen.shape) == (SEL_SITES, 365 * HEAVY_YEARS), (sscen.device, tuple(sscen.shape))
+            r_np, h_np, s_np = arrays
+            want_nan = np.isnan(s_np) | np.isnan(r_np).all(-1)[:, None] | np.isnan(h_np).all(-1)[:, None]
+            assert torch.equal(torch.isnan(sscen).cpu(), torch.from_numpy(want_nan)), f"selection {tag}: NaN where the data has none"
+            assert counts["sort_rows_with_payload"] >= 1 and counts["interp_table_3d"] >= 1, f"selection {tag}: launches {counts}"
+            assert all(counts[k] == 0 for k in merge.launches), f"selection {tag}: a merge kernel ran: {counts}"
+            got = sscen[:ncheck].cpu()
+            small_np = [a[:ncheck] for a in arrays]
+            with xp.set_options(device="cpu"):
+                cpu = run_windowed_path(*small_np, sth)
+            oracle = resort_oracle(*(torch.from_numpy(a).to(dev) for a in small_np), sth).cpu()
+            n_cpu, n_oracle = (int((~_nan_equal(got, w)).sum()) for w in (cpu, oracle))
+            torch.testing.assert_close(got, cpu, equal_nan=True, **TOL)
+            torch.testing.assert_close(got, oracle, equal_nan=True, **TOL)
+            print(f"[selection] EQM dayofyear window={HEAVY_WINDOW} ({tag}) train+adjust on numpy {tuple(sscen.shape)} f32 -> {sscen.device}: "
+                  f"NaN exactly where the data is missing, launches {counts}, {first_s:.3f} s first call; first {ncheck} sites: "
+                  f"{n_cpu} values differ from the CPU port (max abs diff {_max_abs(got, cpu):.3g}), {n_oracle} from the re-sort "
+                  f"oracle (max abs diff {_max_abs(got, oracle):.3g})", flush=True)
+            del sscen
 
     # 6. times
     q = torch.as_tensor(equally_spaced_nodes(NQ), dtype=torch.float32, device=dev)
@@ -398,7 +568,31 @@ def main() -> int:
     print(f"[memory] heavy fused step: peak {step_peak / 2**30:.3f} GiB allocated ({(step_peak - base) / 2**30:.3f} GiB above "
           f"the {base / 2**30:.3f} GiB held before it); public call: peak {api_peak / 2**30:.3f} GiB", flush=True)
 
-    times = {"K1": _in_turns(lookup, lookup_twin)}
+    def sel_step():
+        with xp.set_options(selection_on_tpu=True):
+            return eqm_train_adjust_windowed(sref, shist, ssim, hgi.merge_plan, q, hbrackets, kind="+", interp="linear", extrapolation="constant")
+
+    def merge_step():
+        return eqm_train_adjust_windowed(sref, shist, ssim, hgi.merge_plan, q, hbrackets, kind="+", interp="linear", extrapolation="constant", assume_finite=True)
+
+    sel, mrg = _in_turns(sel_step, merge_step)
+    for label, summ in (("selection", sel), ("merge", mrg)):
+        print(f"[time] fused eqm_train_adjust_windowed doy+{HEAVY_WINDOW} {SEL_SITES} sites x {HEAVY_YEARS} yr, {label} engine: "
+              f"{SEL_SITES * HEAVY_YEARS / (summ['median_ms'] / 1e3):,.0f} gridpoint-years/s ({_fmt(summ)})", flush=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    sel_step()
+    torch.cuda.synchronize()
+    sel_peak = torch.cuda.max_memory_allocated(dev)
+    with xp.set_options(selection_on_tpu=True):
+        sapi = _summary(_host_ms(lambda: run_windowed_path(*sel_np, sth)))
+    print(f"[time] public selection EQM train+adjust on numpy inputs, same data (host clock): {_fmt(sapi)}", flush=True)
+    print(f"[memory] selection fused step: peak {sel_peak / 2**30:.3f} GiB allocated ({(sel_peak - base) / 2**30:.3f} GiB above "
+          f"the {base / 2**30:.3f} GiB held before it)", flush=True)
+
+    times = {"K1": _in_turns(lookup, lookup_twin), "K2": _in_turns(lookup2, lookup2_twin)}
+    times["K7"] = _in_turns(lambda: sort.sort_rows_with_payload(key7, lab7), lambda: sort.sort_rows_with_payload_reference(key7, lab7))
     times["K3"] = _in_turns(lambda: merge.sort_rows_alternating(slab), lambda: merge.sort_rows_alternating_reference(slab))
     times["K5"] = _in_turns(lambda: merge.build_levels(ordered, L), lambda: merge.build_levels_reference(ordered, L))
     width = HEAVY_WINDOW * ymax
@@ -410,24 +604,65 @@ def main() -> int:
         lambda: merge.merged_window_rows(ordered5, SMALL_WINDOW, G, ymax=ymax),
         lambda: merge.merged_window_rows_reference(ordered5, SMALL_WINDOW, G, SMALL_WINDOW * ymax),
     )
-    shapes = {"K1": tuple(v.shape), "K3": tuple(slab.shape), "K5": tuple(ordered.shape), "K6": tuple(ordered.shape), "K4": tuple(ordered5.shape)}
+    shapes = {"K1": tuple(v.shape), "K2": tuple(v2.shape), "K3": tuple(slab.shape), "K5": tuple(ordered.shape), "K6": tuple(ordered.shape),
+              "K4": tuple(ordered5.shape), "K7": tuple(key7.shape)}
     for k, (kern, twin) in times.items():
         print(f"[time] {k} {KERNELS[k]['name']} {shapes[k]}: kernel {_fmt(kern)}; plain twin {_fmt(twin)}", flush=True)
 
-    ours = ("interp_table_3d_kernel", "sort_rows_alt_kernel", "build_level_kernel", "fold_windows_kernel")
+    # one PyTorch call computing each kernel's function, where there is one:
+    # torch.sort of the same rows (K1 and K2 have none)
+    folded = merge.fold_windows(ordered, levels, HEAVY_WINDOW, G, ymax=ymax)
+    merged5 = merge.merged_window_rows(ordered5, SMALL_WINDOW, G, ymax=ymax)
+    shuffle = lambda a: a[..., torch.randperm(a.shape[-1], device=dev)].contiguous()  # noqa: E731
+    wins, wins5 = shuffle(folded), shuffle(merged5)
+    runs = ordered.reshape(ordered.shape[0], -1, (1 << L) * ordered.shape[-1])
+    library = {
+        "K3": lambda: torch.sort(slab, dim=-1),
+        "K5": lambda: torch.sort(runs, dim=-1),
+        "K6": lambda: torch.sort(wins, dim=-1),
+        "K4": lambda: torch.sort(wins5, dim=-1),
+        "K7": lambda: torch.sort(key7, dim=-1, stable=True),
+    }
+    library_ms = {k: _summary(_time_ms(fn))["median_ms"] for k, fn in library.items()}
+    for k, ms in library_ms.items():
+        print(f"[time] {k} library call torch.sort {shapes[k]}: median {ms:.3f} ms", flush=True)
+    del wins, wins5, runs
+
+    # least time on the card: bytes read and written once, and the
+    # comparisons of the function (n log2 n for a sort, one per merged value
+    # and level, log2 of the runs for a k-way merge, log2 nq + 5 per lookup)
+    f4 = 4
+    log2 = lambda n: max(float(np.log2(n)), 1.0)  # noqa: E731
+    bounds = {
+        "K1": _bound(v.numel() * 2 * f4 + xs.numel() * 2 * f4 + nv.numel() * 4, v.numel() * (log2(NQ) + 5)),
+        "K2": _bound(v2.numel() * 2 * f4 + xs2.numel() * 2 * f4 + nv2.numel() * 4, v2.numel() * (log2(NQ) + 5)),
+        "K3": _bound(slab.numel() * 2 * f4, slab.numel() * log2(slab.shape[-1])),
+        "K5": _bound((ordered.numel() + levels.numel()) * f4, levels.numel()),
+        "K6": _bound((ordered.numel() + levels.numel() + folded.numel()) * f4, folded.numel() * log2(len(merge.dyadic_segments(0, HEAVY_WINDOW, 1 << L)))),
+        "K4": _bound((ordered5.numel() + merged5.numel()) * f4, merged5.numel() * log2(SMALL_WINDOW)),
+        "K7": _bound(key7.numel() * 8 + key7.shape[0] * sort.padded_length(key7.shape[1]) * 8,
+                     key7.shape[0] * sort.padded_length(key7.shape[1]) * log2(sort.padded_length(key7.shape[1]))),
+    }
+    del folded, merged5
+
+    ours = ("interp_table_3d_kernel", "sort_rows_alt_kernel", "build_level_kernel", "fold_windows_kernel", "tile_sort_kernel", "merge_pass_kernel")
     _profile("one fused QDM step", qdm_step, ours)
     _profile(f"one fused windowed EQM step (doy+{HEAVY_WINDOW})", heavy_step, ours)
+    _profile(f"one fused selection EQM step (doy+{HEAVY_WINDOW}, {SEL_SITES} sites)", sel_step, ours)
 
     launches = {
         "K1": qdm_counts["interp_table_3d"],
+        "K2": time_counts["interp_table_2d"],
         "K3": paths[HEAVY_WINDOW]["sort_rows_alternating"],
         "K5": paths[HEAVY_WINDOW]["build_levels"],
         "K6": paths[HEAVY_WINDOW]["fold_windows"],
         "K4": paths[SMALL_WINDOW]["merged_window_rows"],
+        "K7": sel_counts["finite"]["sort_rows_with_payload"],
     }
     rows = [
-        dict(KERNELS[k], launches=launches[k], max_abs_err=err[k], ms=times[k][0]["median_ms"], plain_ms=times[k][1]["median_ms"])
-        for k in ("K1", "K3", "K4", "K5", "K6")
+        dict(KERNELS[k], launches=launches[k], max_abs_err=err[k], ms=times[k][0]["median_ms"], plain_ms=times[k][1]["median_ms"],
+             bound_ms=bounds[k][0], bound_by=bounds[k][1], library_ms=library_ms.get(k))
+        for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K7")
     ]
     print(smi, flush=True)
     print(json.dumps({"kernels": rows}))

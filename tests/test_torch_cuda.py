@@ -1,6 +1,7 @@
 """The port on an NVIDIA GPU: the CUDA kernels against their plain twins,
-and the public QDM and windowed EQM paths on CUDA tensors against the port's
-CPU path.
+and the public QDM and windowed EQM paths (merge and selection engines) on
+the card against the port's CPU path.  Numpy data runs on the card by
+default here (the ``device`` option is left at "cuda").
 
 Every test here needs a card (and ``nvcc`` to build the kernels) and skips
 without one.  The file imports no JAX, so it also runs where JAX is absent;
@@ -14,8 +15,19 @@ import pytest
 import torch
 
 import xsdba_tpu_torch as xp
-from chip_smoke import example_problem, heavy_problem, lookup_inputs, resort_oracle, run_main_path, run_windowed_path
-from xsdba_tpu_torch.ops import merge
+from chip_smoke import (
+    example_problem,
+    heavy_problem,
+    lookup_inputs,
+    nan_masked,
+    pair_sorted,
+    resort_oracle,
+    run_main_path,
+    run_windowed_path,
+    sort_inputs,
+)
+from xsdba_tpu_torch.ops import merge, selquant, sort
+from xsdba_tpu_torch.ops.correction import equally_spaced_nodes
 from xsdba_tpu_torch.ops.cuda import interp_kernel as k
 
 pytestmark = pytest.mark.cuda
@@ -150,8 +162,9 @@ def test_merge_wrappers_raise_past_their_limits(cuda):
 
 @pytest.mark.parametrize("window,calendar,nan", [(31, "noleap", False), (31, "standard", True), (5, "noleap", True)])
 def test_public_windowed_eqm_on_cuda_matches_cpu(cuda, window, calendar, nan):
-    """Windowed EQM on a few sites: through the kernels on the card, equal
-    to the port's CPU path and to the re-sort oracle."""
+    """Windowed EQM on a few sites: through the merge kernels on the card,
+    equal to the port's CPU merge path, and in float64 to the re-sort
+    oracle."""
     t, data = heavy_problem(6, 5)
     if calendar != "noleap":
         t = xp.date_range("1950-01-01", periods=len(t), freq="D", calendar=calendar)
@@ -164,7 +177,103 @@ def test_public_windowed_eqm_on_cuda_matches_cpu(cuda, window, calendar, nan):
     torch.cuda.synchronize()
     assert got.is_cuda and merge.launches["sort_rows_alternating"] >= 1
     assert merge.launches["fold_windows" if window >= 9 else "merged_window_rows"] >= 1
-    want = run_windowed_path(*(torch.from_numpy(a) for a in data), t, window)
+    with xp.set_options(selection_backend=False):  # the CPU's default engine is selection
+        want = run_windowed_path(*(torch.from_numpy(a) for a in data), t, window)
     torch.testing.assert_close(got.cpu(), want, rtol=2e-6, atol=2e-6, equal_nan=True)
-    oracle = resort_oracle(*(torch.from_numpy(a) for a in data), t, window)
-    torch.testing.assert_close(got.cpu(), oracle, rtol=2e-6, atol=2e-6, equal_nan=True)
+    # against the re-sort oracle in float64: in float32 the merge engine's
+    # unfused static arithmetic and the oracle's fused one differ in the
+    # top tail as the reference's two paths do (ROADMAP C2)
+    data64 = [torch.from_numpy(a).double() for a in data]
+    got64 = run_windowed_path(*(a.to(cuda) for a in data64), t, window)
+    torch.testing.assert_close(got64.cpu(), resort_oracle(*data64, t, window), rtol=1e-12, atol=1e-12, equal_nan=True)
+
+
+# ------------------------------------------------------------ K7, K2
+
+
+@pytest.mark.parametrize("B,T", [(1, 1), (2, 128), (3, 1000), (2, 4097), (2, 8192), (4, 54750), (1, 1 << 20), (0, 300)])
+def test_row_sort_with_payload_matches_twin(cuda, B, T):
+    key, lab = sort_inputs(B, T, seed=T, device=cuda)
+    before = sort.launches
+    got_k, got_l = sort.sort_rows_with_payload(key, lab)
+    torch.cuda.synchronize()
+    Tp = sort.padded_length(T)
+    assert sort.launches == before + (0 if B == 0 else 1 + max(Tp // sort.TILE, 1).bit_length() - 1)
+    want_k, want_l = sort.sort_rows_with_payload_reference(key, lab)
+    assert got_k.is_cuda and tuple(got_k.shape) == (B, Tp)
+    assert _equal(got_k, want_k)
+    gk, gl = pair_sorted(got_k, got_l)
+    wk, wl = pair_sorted(want_k, want_l)
+    assert _equal(gk, wk) and _equal(gl, wl)
+
+
+@pytest.mark.parametrize("R,L,nq", [(1, 1, 2), (7, 2049, 50), (5, 333, 64), (4, 100, 1), (512, 4650, 50)])
+def test_row_lookup_matches_twin_bitwise(cuda, R, L, nq):
+    v, xs, ys, nv = (a.reshape(R, -1).contiguous() for a in lookup_inputs(R, 1, L, nq, seed=R + L, device=cuda))
+    nv = nv.reshape(R)
+    before = k.launches_2d
+    got = k.interp_table_2d(v, xs, ys, nv)
+    torch.cuda.synchronize()
+    assert k.launches_2d == before + 1 and got.is_cuda and got.shape == v.shape
+    assert _nan_equal(got, k.interp_table_2d_reference(v, xs, ys, nv))
+
+
+def test_public_time_group_qdm_runs_k2(cuda):
+    t, data = example_problem(8, 3)
+    k.launches_2d = 0
+    qdm = xp.QuantileDeltaMapping.train(*(xp.DataArray(a, ("site", "time"), {"time": t}, {"units": "K"}) for a in data[:2]), group="time", nquantiles=20)
+    got = qdm.adjust(xp.DataArray(data[2], ("site", "time"), {"time": t}, {"units": "K"}), interp="linear").data
+    torch.cuda.synchronize()
+    assert got.is_cuda and k.launches_2d >= 1
+    with xp.set_options(device="cpu"):
+        want = xp.QuantileDeltaMapping.train(*(xp.DataArray(a, ("site", "time"), {"time": t}, {"units": "K"}) for a in data[:2]), group="time", nquantiles=20)
+        want = want.adjust(xp.DataArray(data[2], ("site", "time"), {"time": t}, {"units": "K"}), interp="linear").data
+    torch.testing.assert_close(got.cpu(), want, rtol=2e-6, atol=2e-6)
+
+
+# ------------------------------------------------------------ selection engine
+
+
+@pytest.mark.parametrize("sort_impl", ["pallas", "lax"])
+@pytest.mark.parametrize("window", [5, 31])
+def test_selection_engine_on_cuda_equals_cpu(cuda, sort_impl, window):
+    t, data = heavy_problem(6, 5)
+    x = torch.from_numpy(np.stack(nan_masked(data)[:2]).reshape(12, -1))
+    plan = xp.Grouper("time.dayofyear", window=window).indexes(t).merge_plan
+    q = equally_spaced_nodes(50).astype(np.float32)
+    before = sort.launches
+    got = selquant.selection_windowed_quantile(x.to(cuda), plan, q, sort_impl=sort_impl)
+    torch.cuda.synchronize()
+    assert got.is_cuda and (sort.launches > before) == (sort_impl == "pallas")
+    assert _nan_equal(got.cpu(), selquant.selection_windowed_quantile(x, plan, q))
+
+
+def test_public_selection_eqm_on_numpy_runs_on_the_card(cuda):
+    """Numpy inputs, default device: the selection path (K7, K1, no merge
+    kernel) on the card, equal to the port's CPU path and the oracle."""
+    t, data = heavy_problem(6, 5)
+    data = nan_masked(data)
+    sort.launches = 0
+    for key in merge.launches:
+        merge.launches[key] = 0
+    with xp.set_options(selection_on_tpu=True):
+        got = run_windowed_path(*data, t)
+    torch.cuda.synchronize()
+    assert got.is_cuda and sort.launches >= 1 and not any(merge.launches.values())
+    with xp.set_options(device="cpu"):
+        want = run_windowed_path(*data, t)
+    assert _nan_equal(got.cpu(), want)
+    assert _nan_equal(got.cpu(), resort_oracle(*(torch.from_numpy(a) for a in data), t))
+
+
+def test_object_from_file_adjusts_on_the_card(cuda, tmp_path):
+    t, (ref, hist, sim) = heavy_problem(3, 4)
+    mk = lambda x: xp.DataArray(x, ("site", "time"), {"time": t}, {"units": "K"})  # noqa: E731
+    with xp.set_options(device="cpu"):
+        trained = xp.EmpiricalQuantileMapping.train(mk(ref), mk(hist), group="time.dayofyear", window=31, nquantiles=20)
+        want = trained.adjust(mk(sim), interp="linear").data
+    path = str(tmp_path / "eqm")
+    trained.save(path)
+    got = xp.EmpiricalQuantileMapping.from_file(path).adjust(mk(sim), interp="linear").data
+    assert got.is_cuda
+    torch.testing.assert_close(got.cpu(), want, rtol=2e-6, atol=2e-6)

@@ -17,6 +17,14 @@ import xsdba_tpu_torch as xp
 from xsdba_tpu.utils.grouper import Grouper as RefGrouper
 from xsdba_tpu_torch.utils.grouper import Grouper
 
+
+@pytest.fixture(autouse=True)
+def _port_on_cpu():
+    """The port computes numpy inputs on CUDA by default; these tests ask for the CPU."""
+    with xp.set_options(device="cpu"):
+        yield
+
+
 CASES = [
     ("time.month", 1, "noleap"),
     ("time.month", 1, "standard"),

@@ -8,6 +8,7 @@ rtol = atol = 2e-6 (float32; XLA's CPU FMA contraction).  The CUDA kernel
 itself is held to the twin on the card by ``tests/test_torch_cuda.py``.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -17,6 +18,15 @@ from xsdba_tpu.ops.interp import _compact_nan_pairs, _interp_unrolled
 from xsdba_tpu.ops.pallas.interp_kernel import interp_table_pallas_3d
 from xsdba_tpu_torch.ops import interp as tinterp
 from xsdba_tpu_torch.ops.cuda import interp_kernel as k
+import xsdba_tpu_torch as xp
+
+
+@pytest.fixture(autouse=True)
+def _port_on_cpu():
+    """The port computes numpy inputs on CUDA by default; these tests ask for the CPU."""
+    with xp.set_options(device="cpu"):
+        yield
+
 
 TOL = dict(rtol=2e-6, atol=2e-6, equal_nan=True)
 
@@ -165,3 +175,85 @@ def test_chip_smoke_inputs_cover_the_edge_cases():
     got = k.interp_table_3d(v, xs, ys, nv)
     vj, xj, yj, nj = (jnp.asarray(a.numpy()) for a in (v, xs, ys, nv))
     np.testing.assert_allclose(got.numpy(), np.asarray(_interp_unrolled(vj, xj, yj, nj, "linear", "constant")), **TOL)
+
+
+# ------------------------------------------------------------- K2: [R, L] rows
+
+
+def _rows(seed=6, R=5, L=300, nq=13):
+    """[R, L] values and raw [R, nq] tables with NaN pairs, a whole-NaN row
+    and a single-node row whose value sits on its node."""
+    rng = np.random.default_rng(seed)
+    xq = np.sort(rng.normal(0, 2, (R, nq)), axis=-1).astype(np.float32)
+    yq = rng.normal(0, 1, (R, nq)).astype(np.float32)
+    xq[0, 4] = yq[1, 9] = np.nan
+    xq[2] = np.nan
+    xq[3, 1:] = yq[3, 1:] = np.nan
+    v = rng.normal(0, 3, (R, L)).astype(np.float32)
+    v[0, :3] = np.nan
+    v[3, :2] = xq[3, 0]
+    return v, xq, yq
+
+
+def test_row_lookup_matches_reference_interp1d_table():
+    """The ungrouped lookup through K2's wrapper (its twin here) equals the
+    reference's compiled ``interp1d_table`` bit for bit, and its eager form
+    within 2e-6 (it rounds the blend twice)."""
+    from xsdba_tpu.ops.interp import interp1d_table as jinterp1d
+
+    v, xq, yq = _rows()
+    got = tinterp.interp1d_table(*_torch(v, xq, yq))
+    want = jax.jit(lambda a, b, c: jinterp1d(a, b, c, "linear", "constant"))(v, xq, yq)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_allclose(got.numpy(), np.asarray(jinterp1d(v, xq, yq, "linear", "constant")), **TOL)
+    xs, ys, nv = tinterp._compact_nan_pairs(*_torch(xq, yq))
+    twin = k.interp_table_2d_reference(torch.as_tensor(v), xs, ys, nv.to(torch.int32))
+    np.testing.assert_array_equal(got.numpy(), twin.numpy())
+
+
+@pytest.mark.parametrize("vshape,qshape,dtype,method,extrap,expect", [
+    ((2, 3, 50), (2, 3, 8), torch.float32, "linear", "constant", (6, 50)),
+    ((4, 50), (8,), torch.float32, "linear", "constant", (4, 50)),
+    ((50,), (3, 8), torch.float32, "linear", "constant", (3, 50)),
+    ((4, 50), (4, 8), torch.float64, "linear", "constant", None),
+    ((4, 50), (4, 8), torch.float32, "nearest", "constant", None),
+    ((4, 50), (4, 8), torch.float32, "linear", "nan", None),
+])
+def test_row_lookup_dispatch(monkeypatch, vshape, qshape, dtype, method, extrap, expect):
+    """``interp1d_table`` hands linear/constant f32 tables to K2's wrapper
+    as [R, L] rows (the table broadcast to v's leading dims, int32 counts)
+    and keeps everything else on the plain path; both give the plain
+    answer."""
+    seen = []
+
+    def spy(v, xs, ys, nvalid):
+        seen.append((tuple(v.shape), tuple(xs.shape), tuple(nvalid.shape), nvalid.dtype))
+        return k.interp_table_2d(v, xs, ys, nvalid)
+
+    monkeypatch.setattr(tinterp, "interp_table_2d", spy)
+    rng = np.random.default_rng(7)
+    xq = torch.as_tensor(np.sort(rng.normal(0, 1, qshape), axis=-1), dtype=dtype)
+    yq = torch.as_tensor(rng.normal(0, 1, qshape), dtype=dtype)
+    v = torch.as_tensor(rng.normal(0, 1.5, vshape), dtype=dtype)
+    got = tinterp.interp1d_table(v, xq, yq, method, extrap)
+    assert seen == ([(expect, (expect[0], qshape[-1]), (expect[0],), torch.int32)] if expect else [])
+    xs, ys, nv = tinterp._compact_nan_pairs(xq, yq)
+    want = tinterp._interp_unrolled(v, xs, ys, nv, method, extrap)
+    assert got.shape == want.shape
+    torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+
+
+def test_row_wrapper_on_cpu_runs_twin_and_checks_shapes():
+    v, xq, yq = _rows(seed=8)
+    xs, ys, nv = tinterp._compact_nan_pairs(*_torch(xq, yq))
+    args = (torch.as_tensor(v), xs, ys, nv.to(torch.int32))
+    before = k.launches_2d
+    got = k.interp_table_2d(*args)
+    assert k.launches_2d == before
+    torch.testing.assert_close(got, k.interp_table_2d_reference(*args), rtol=0, atol=0, equal_nan=True)
+    with pytest.raises(ValueError):
+        k.interp_table_2d(args[0][None], *args[1:])
+    with pytest.raises(ValueError):
+        k.interp_table_2d(args[0], xs[:2], ys[:2], args[3])
+    with pytest.raises(TypeError):
+        k.interp_table_2d(args[0].double(), *args[1:])

@@ -18,6 +18,15 @@ import torch
 import jax.numpy as jnp
 from xsdba_tpu.ops.pallas import merge_kernel as jmk
 from xsdba_tpu_torch.ops import merge as M
+import xsdba_tpu_torch as xp
+
+
+@pytest.fixture(autouse=True)
+def _port_on_cpu():
+    """The port computes numpy inputs on CUDA by default; these tests ask for the CPU."""
+    with xp.set_options(device="cpu"):
+        yield
+
 
 B, DP, M_ROW, G, YMAX = 4, 64, 16, 12, 11
 

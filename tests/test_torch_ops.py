@@ -24,6 +24,15 @@ import xsdba_tpu_torch.ops.rank as trank
 import xsdba_tpu_torch.ops.segment as tseg
 from xsdba_tpu.utils.calendar import date_range
 from xsdba_tpu.utils.grouper import Grouper
+import xsdba_tpu_torch as xp
+
+
+@pytest.fixture(autouse=True)
+def _port_on_cpu():
+    """The port computes numpy inputs on CUDA by default; these tests ask for the CPU."""
+    with xp.set_options(device="cpu"):
+        yield
+
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden", "golden.npz")
 TOL = {np.float64: dict(rtol=1e-12, atol=1e-12), np.float32: dict(rtol=2e-6, atol=2e-6)}

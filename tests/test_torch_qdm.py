@@ -17,6 +17,14 @@ import xsdba_tpu as xt
 import xsdba_tpu_torch as xp
 from e2e_cases import build_inputs
 
+
+@pytest.fixture(autouse=True)
+def _port_on_cpu():
+    """The port computes numpy inputs on CUDA by default; these tests ask for the CPU."""
+    with xp.set_options(device="cpu"):
+        yield
+
+
 FROZEN = os.path.join(os.path.dirname(__file__), "golden", "e2e_scen.npz")
 F64 = dict(rtol=1e-12, atol=1e-12, equal_nan=True)
 F32 = dict(rtol=2e-6, atol=2e-6, equal_nan=True)

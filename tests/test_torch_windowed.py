@@ -2,8 +2,9 @@
 package, on the CPU.
 
 ``windowed_group_quantile`` runs the same numpy inputs through both packages,
-with the reference's merge engine pinned (``selection_backend=False``, so it
-runs its own merge path), and through the port's re-sort oracle
+with both packages pinned to their merge engines (``selection_backend=False``,
+the CPU's default being the selection engine), and through the port's re-sort
+oracle
 ``grouped_nan_quantile``: noleap (regular slab layout) and standard
 (gathered slab, edge groups) calendars, NaN gaps (the dynamic extraction),
 all-NaN sites (the static extraction's mask) and windows on both sides of
@@ -25,6 +26,16 @@ from xsdba_tpu_torch.models import _algos as palgos
 from xsdba_tpu_torch.models._wrap import device_brackets
 from xsdba_tpu_torch.ops import quantile as pq
 from xsdba_tpu_torch.ops.correction import equally_spaced_nodes
+
+
+@pytest.fixture(autouse=True)
+def _port_on_cpu():
+    """The port computes numpy inputs on CUDA by default; these tests ask
+    for the CPU, and pin the port to its merge engine (the CPU's default is
+    the selection engine, ``tests/test_torch_selquant.py``)."""
+    with xp.set_options(device="cpu", selection_backend=False):
+        yield
+
 
 F64 = dict(rtol=1e-12, atol=1e-12, equal_nan=True)
 F32 = dict(rtol=2e-6, atol=2e-6, equal_nan=True)
@@ -210,8 +221,9 @@ def test_windowed_eqm_trained_by_reference_loads_in_port(tmp_path):
 
 def test_chip_smoke_heavy_path_on_cpu():
     """``chip_smoke.py``'s heavy phase, on the CPU at a small size: the
-    port's public windowed EQM on the heavy data recipe against the
-    reference's, and the re-sort oracle it is held to on the card."""
+    port's public windowed EQM (merge engine) on the heavy data recipe
+    against the reference's and the re-sort oracle, and in float64 against
+    the oracle (as on the card)."""
     from chip_smoke import NQ, heavy_problem, resort_oracle, run_windowed_path
 
     t, (ref, hist, sim) = heavy_problem(3, 4)
@@ -223,5 +235,7 @@ def test_chip_smoke_heavy_path_on_cpu():
         want = xt.EmpiricalQuantileMapping.train(mk(ref), mk(hist), group="time.dayofyear", window=31, nquantiles=NQ, kind="+")
         want = want.adjust(mk(sim), interp="linear")
     np.testing.assert_allclose(got.numpy(), np.asarray(want.data), **F32)
+    data64 = [torch.from_numpy(a).double() for a in (ref, hist, sim)]
+    np.testing.assert_allclose(run_windowed_path(*data64, t).numpy(), resort_oracle(*data64, t).numpy(), **F64)
     oracle = resort_oracle(*(torch.from_numpy(a) for a in (ref, hist, sim)), t)
     np.testing.assert_allclose(got.numpy(), oracle.numpy(), **F32)

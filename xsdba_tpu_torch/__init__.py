@@ -2,9 +2,13 @@
 
 The PyTorch/CUDA port of ``xsdba_tpu``: the same containers, time grouping
 lowered to static indexes, and train/adjust schemes, as plain functions over
-tensors on whatever device the data lies.  On an NVIDIA GPU the grouped
-quantile-table lookup (``ops/cuda/interp_kernel.py``) and the windowed
-quantile's merge engine (``ops/merge.py``) run in hand-written CUDA kernels.
+tensors.  A tensor is computed on its own device; numpy data handed to the
+public entry points goes to the ``device`` option's device, CUDA unless the
+caller asks for the CPU (``set_options(device="cpu")``).  On an NVIDIA GPU
+every Pallas kernel of the JAX package has a hand-written CUDA counterpart:
+the quantile-table lookups (``ops/cuda/interp_kernel.py``, grouped and
+per-row), the windowed quantile's merge engine (``ops/merge.py``) and the
+counting-selection engine's key–payload row sort (``ops/sort.py``).
 Ported so far: EmpiricalQuantileMapping and QuantileDeltaMapping without
 preprocessing, with plain and windowed groupings (ROADMAP.md lists the
 rest).

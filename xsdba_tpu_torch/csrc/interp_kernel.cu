@@ -1,9 +1,13 @@
-// Per-(batch, group) quantile-table lookup for the partitioned grouped
-// adjust: out[r, i] = table_r(v[r, i]), linear interpolation between the
-// bracketing nodes, constant extrapolation.
-//
-// Replaces xsdba_tpu/ops/pallas/interp_kernel.py:interp_table_pallas_3d
-// (the _kernel3d/_interp_body Pallas kernel).  Its plain twin is
+// Quantile-table lookup: out[r, i] = table_r(v[r, i]), linear
+// interpolation between the bracketing nodes, constant extrapolation.  Two
+// entries launch the one kernel:
+//   xsdba_interp_table_3d, the per-(batch, group) lookup of the partitioned
+//     grouped adjust, replaces xsdba_tpu/ops/pallas/interp_kernel.py:
+//     interp_table_pallas_3d (K1, the _kernel3d/_interp_body Pallas kernel);
+//   xsdba_interp_table_2d, one table per row of [R, L] values (the ungrouped
+//     adjust), replaces interp_kernel.py:interp_table_pallas (K2, _kernel),
+//     as the 3-D lookup on an [R, 1, L] view.
+// Their plain twin is
 // xsdba_tpu_torch/ops/interp.py:_interp_unrolled(..., "linear", "constant"),
 // and the kernel computes exactly what the twin computes, the single-node
 // guard y1 = isnan(y1) ? y0 : y1 included.
@@ -19,8 +23,10 @@
 // holds it to 0.451 ms, about 591 GB/s, at the headline shape.
 //
 // Arithmetic uses the round-to-nearest intrinsics and the build passes
-// -fmad=false, so no FMA contraction separates the kernel from the twin:
-// both give the same bits.
+// -fmad=false, so the only fused multiply-add is the blend's explicit
+// __fmaf_rn(t, y1 - y0, y0), which the twin rounds once too (utils/tensor.py
+// fma, as the JAX package's compiled adjust fuses it): both give the same
+// bits.
 //
 // Layout: v/out [rows, lp] row-major, xs/ys [rows, nq] (compacted: valid
 // nodes first, ascending; +inf / NaN tail), nvalid [rows] int32.
@@ -80,7 +86,7 @@ interp_table_3d_kernel(const float* __restrict__ v, const float* __restrict__ xs
     float t = 0.0f;
     if (dx > 0.0f) t = __fdiv_rn(__fsub_rn(val, x0), dx);
     if (!isfinite(t)) t = 0.0f;
-    float r = __fadd_rn(y0, __fmul_rn(t, __fsub_rn(y1, y0)));
+    float r = __fmaf_rn(t, __fsub_rn(y1, y0), y0);
     if (val < x_first) r = y_first;
     if (val > x_last) r = y_last;
     if (nv == 0 || isnan(val)) r = NAN;
@@ -88,15 +94,8 @@ interp_table_3d_kernel(const float* __restrict__ v, const float* __restrict__ xs
   }
 }
 
-}  // namespace
-
-// rows = B * Gp partition rows of lp values each; nq table nodes (<= 64).
-// Launches on `stream` of CUDA device `device` (leaving the calling thread's
-// current device as it found it) and returns
-// cudaGetLastError() (0 on success).
-extern "C" int xsdba_interp_table_3d(const void* v, const void* xs, const void* ys,
-                                     const void* nvalid, void* out, int rows, int lp,
-                                     int nq, int device, void* stream) {
+int launch(const void* v, const void* xs, const void* ys, const void* nvalid, void* out, int rows, int lp, int nq,
+           int device, void* stream) {
   if (rows < 0 || lp < 0 || nq < 1 || nq > kMaxNq) return static_cast<int>(cudaErrorInvalidValue);
   if (rows == 0 || lp == 0) return 0;
   const xsdba::DeviceGuard guard(device);
@@ -106,4 +105,24 @@ extern "C" int xsdba_interp_table_3d(const void* v, const void* xs, const void* 
       static_cast<const float*>(v), static_cast<const float*>(xs), static_cast<const float*>(ys),
       static_cast<const int*>(nvalid), static_cast<float*>(out), lp, nq);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Both entries launch on `stream` of CUDA device `device` (leaving the
+// calling thread's current device as it found it) and return
+// cudaGetLastError() (0 on success); nq table nodes (<= 64).
+
+// rows = B * Gp partition rows of lp values each.
+extern "C" int xsdba_interp_table_3d(const void* v, const void* xs, const void* ys,
+                                     const void* nvalid, void* out, int rows, int lp,
+                                     int nq, int device, void* stream) {
+  return launch(v, xs, ys, nvalid, out, rows, lp, nq, device, stream);
+}
+
+// v/out [rows, l], xs/ys [rows, nq], nvalid [rows]: one table per row.
+extern "C" int xsdba_interp_table_2d(const void* v, const void* xs, const void* ys,
+                                     const void* nvalid, void* out, int rows, int l,
+                                     int nq, int device, void* stream) {
+  return launch(v, xs, ys, nvalid, out, rows, l, nq, device, stream);
 }

@@ -8,18 +8,21 @@ Grouped lookups and broadcasts use *bracket partitions*
 (``GroupIndexes.bracket_partitions``): static -1-padded partitions of the
 time axis by bracketing padded group, so every step is either a batched
 per-partition table evaluation or a gather from a long source axis.
-Windowed dayofyear / "5D" groupings train through the merge engine of
+Windowed dayofyear / "5D" groupings train through the counting-selection
+engine (``ops/selquant.py``) or the merge engine of
 ``ops/quantile.py:windowed_group_quantile`` (``eqm_train_windowed``).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..ops.correction import apply_correction, get_correction
 from ..ops.interp import interp1d_table, interp_grouped_partitioned
 from ..ops.quantile import _static_ok, _static_safe, _windowed_chunks, grouped_nan_quantile, nan_quantile, windowed_group_quantile
 from ..ops.segment import gather_groups, grouped_rank
+from ..ops.selquant import selection_ok, selection_windowed_quantile
 from ..utils.tensor import as_tensor
 
 __all__ = [
@@ -143,16 +146,41 @@ def _eqm_train_windowed_fused(ref, hist, plan, quantiles, *, kind: str, static: 
     return get_correction(q2[1], q2[0], kind), q2[1]
 
 
+def _sel_fused_ok(plan, ref, hist, quantiles) -> bool:
+    """The fused selection train applies (reference ``_algos.py:379-393``):
+    the selection engine serves the call, ref and hist match, and the
+    stage-3 block gather of the stacked batch stays within 2^31 elements."""
+    if not (selection_ok(plan, quantiles, ref.device) and ref.shape == hist.shape and ref.dtype == hist.dtype):
+        return False
+    B2 = 2 * int(np.prod(ref.shape[:-1], dtype=np.int64))
+    G = int(plan.fast_mask.shape[0])
+    K = 2 * int(np.shape(quantiles)[0]) + 1
+    return B2 * G * K * 128 <= (1 << 31)
+
+
+def _eqm_train_windowed_sel(ref, hist, plan, quantiles, *, kind: str):
+    """Windowed EQM train of a matching pair on the counting-selection
+    engine: one stacked NaN-exact pass and the factors (reference
+    ``_algos.py:346-356``)."""
+    q2 = selection_windowed_quantile(torch.stack([ref, hist]), plan, quantiles)
+    return get_correction(q2[1], q2[0], kind), q2[1]
+
+
 def eqm_train_windowed(ref, hist, plan, quantiles, *, kind: str, assume_finite: bool | None = None):
-    """EQM train on a windowed dayofyear / "5D" grouping through the merge
-    engine (``ops/quantile.windowed_group_quantile``): the same tables as
-    ``eqm_train_from_raw`` on that grouping, with each window-1 list sorted
-    once instead of ``window`` times.  A matching pair shares one stacked
-    pass and one finiteness check (reference ``_algos.py:525-601``);
-    ``assume_finite`` pins that pair's extraction: True the static one (the
-    caller promises rows that are all finite or all NaN), False the dynamic
-    one; None checks the data (one host synchronisation)."""
+    """EQM train on a windowed dayofyear / "5D" grouping
+    (``ops/quantile.windowed_group_quantile``): the same tables as
+    ``eqm_train_from_raw`` on that grouping.  A matching pair the selection
+    engine serves (``_sel_fused_ok``) takes one stacked selection pass and
+    ignores ``assume_finite``.  Otherwise the merge engine sorts each
+    window-1 list once instead of ``window`` times; a matching pair shares
+    one stacked pass and one finiteness check (reference
+    ``_algos.py:525-601``), and ``assume_finite`` pins that pair's
+    extraction: True the static one (the caller promises rows that are all
+    finite or all NaN), False the dynamic one; None checks the data (one
+    host synchronisation)."""
     ref, hist = as_tensor(ref), as_tensor(hist)
+    if _sel_fused_ok(plan, ref, hist, quantiles):
+        return _eqm_train_windowed_sel(ref, hist, plan, quantiles, kind=kind)
     if ref.shape == hist.shape and ref.dtype == hist.dtype:
         finite = _static_safe(ref, hist) if assume_finite is None else bool(assume_finite)
         static = _static_ok(plan, quantiles) and finite

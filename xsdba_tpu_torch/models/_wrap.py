@@ -9,7 +9,7 @@ import torch
 
 from ..utils.container import DataArray
 from ..utils.grouper import GroupIndexes
-from ..utils.tensor import as_tensor
+from ..utils.tensor import input_tensor
 
 __all__ = ["Brackets", "batch_of", "device_brackets", "fold_add_dims", "grouped_var", "scen_like", "to_compute"]
 
@@ -57,12 +57,12 @@ def device_brackets(gi: GroupIndexes, method: str = "linear", device=None) -> Br
 
 
 def to_compute(da: DataArray):
-    """DataArray -> (tensor [..., T] on the data's device, batch dims,
-    batch coords).  Numpy data becomes a CPU tensor."""
+    """DataArray -> (tensor [..., T], batch dims, batch coords).  A tensor
+    keeps its device; numpy data goes to the ``device`` option's device."""
     da = da.move_dim_last("time")
     batch_dims = da.dims[:-1]
     batch_coords = {d: da.coords[d] for d in batch_dims if d in da.coords}
-    return as_tensor(da.data), batch_dims, batch_coords
+    return input_tensor(da.data), batch_dims, batch_coords
 
 
 def fold_add_dims(group, *das: DataArray):
@@ -90,7 +90,7 @@ def fold_add_dims(group, *das: DataArray):
     bcoords: dict = {}
     for i, da in enumerate(das):
         dac = da.move_dim_last("time")
-        arr = as_tensor(dac.data)
+        arr = input_tensor(dac.data)
         dims = list(dac.dims)
         for d in adims:
             if d not in dims:

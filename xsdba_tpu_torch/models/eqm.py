@@ -37,8 +37,12 @@ class EmpiricalQuantileMapping(TrainAdjust):
     ``nquantiles`` (int -> bin-midpoint nodes), ``kind`` (+/*), ``group``,
     ``max_tail_factor``; adjust takes ``interp`` (nearest/linear) and
     ``extrapolation`` (constant/nan).  A windowed dayofyear or "5D" group
-    trains through the merge engine (``ops/quantile.py``, with the CUDA
-    kernels of ``ops/merge.py`` on a GPU).  Jitter and frequency adaptation
+    trains through the counting-selection engine (``ops/selquant.py``; the
+    CPU's default, and on a GPU under ``set_options(selection_on_tpu=True)``,
+    with the row sort kernel of ``ops/sort.py``) or the merge engine
+    (``ops/quantile.py``, with the CUDA kernels of ``ops/merge.py``; the
+    GPU's default).  Numpy data runs on the ``device`` option's device (CUDA
+    unless the caller asks for the CPU).  Jitter and frequency adaptation
     and cubic interpolation (ROADMAP A7) are not ported yet and raise
     ``NotImplementedError``.
     """

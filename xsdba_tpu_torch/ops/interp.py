@@ -29,9 +29,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..utils.tensor import as_tensor
+from ..utils.tensor import as_tensor, fma
 from .cuda.interp_kernel import MAX_NQ as KERNEL_MAX_NQ
-from .cuda.interp_kernel import interp_table_3d
+from .cuda.interp_kernel import interp_table_2d, interp_table_3d
 
 __all__ = [
     "interp1d_table",
@@ -98,7 +98,8 @@ def _blend(v, x0, x1, y0, y1, method: str):
     t = torch.where(dx > 0, (v - x0) / torch.where(dx == 0, 1, dx), 0.0)
     t = torch.where(torch.isfinite(t), t, 0.0)
     if method == "linear":
-        return y0 + t * (y1 - y0)
+        # y0 + t * (y1 - y0), fused as the JAX package's compiled adjust fuses it
+        return fma(t, y1 - y0, y0)
     if method == "nearest":
         return torch.where(torch.abs(v - x0) <= torch.abs(x1 - v), y0, y1)
     _cubic_unported(method)
@@ -186,13 +187,24 @@ def interp1d_table(v, xq, yq, method: str = "linear", extrap: str = "constant"):
     NaN pairs in the table are ignored; NaN in v stays NaN.
     ``extrap``: 'constant' fills beyond the table with the first/last valid
     yq; 'nan' fills with NaN (reference utils.py:353-368).
-    ``method``: 'linear' or 'nearest' ('cubic' is ROADMAP A7).
+    ``method``: 'linear' or 'nearest' ('cubic' is ROADMAP A7).  Linear,
+    constant-extrapolated float32 tables of at most ``KERNEL_MAX_NQ`` nodes
+    go through the 2-D lookup kernel's wrapper (``interp_table_2d``: the
+    CUDA kernel on a CUDA tensor, its plain twin on a CPU tensor), one
+    table per row of v's broadcast leading dims.
     """
     v = as_tensor(v)
     xq = as_tensor(xq, device=v.device)
     yq = as_tensor(yq, device=v.device)
     xs, ys, nvalid = _compact_nan_pairs(xq, yq)
-    return _interp_unrolled(v, xs, ys, nvalid, method, extrap)
+    if not _uses_kernel(v, xs, ys, method, extrap):
+        return _interp_unrolled(v, xs, ys, nvalid, method, extrap)
+    lead = torch.broadcast_shapes(v.shape[:-1], xs.shape[:-1])
+    nq, L = xs.shape[-1], v.shape[-1]
+    R = int(np.prod(lead, dtype=np.int64))
+    rows = lambda a, *tail: a.expand(lead + tail).reshape((R,) + tail).contiguous()  # noqa: E731
+    out = interp_table_2d(rows(v, L), rows(xs, nq), rows(ys, nq), rows(nvalid.to(torch.int32)))
+    return out.reshape(lead + (L,))
 
 
 def _compact_sorted_tables(xq, yq):

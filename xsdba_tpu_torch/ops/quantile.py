@@ -11,12 +11,13 @@ vectorized gather + lerp — no Python-level row loop, any leading batch dims.
 
 from __future__ import annotations
 
+import math
 import weakref
 
 import numpy as np
 import torch
 
-from ..utils.tensor import as_tensor
+from ..utils.tensor import as_tensor, fma
 
 __all__ = [
     "grouped_nan_quantile",
@@ -27,15 +28,24 @@ __all__ = [
 
 
 def _virtual_index(valid_count, quantiles, alpha: float, beta: float):
-    # Reference nbutils.py:130: n*q + (alpha + q*(1-alpha-beta)) - 1
-    return valid_count * quantiles + (alpha + quantiles * (1 - alpha - beta)) - 1
+    # Reference nbutils.py:130: n*q + (alpha + q*(1-alpha-beta)) - 1, with
+    # both products fused as the JAX package's compiled programs fuse them.
+    # A power-of-two (or zero) 1-alpha-beta, such as the default -1, makes
+    # q*(1-alpha-beta) exact, where the plain expression is the fused one.
+    k = 1 - alpha - beta
+    if k == 0 or math.frexp(k)[0] in (0.5, -0.5):
+        offset = alpha + quantiles * k
+    else:
+        scalar = lambda s: torch.tensor(s, dtype=quantiles.dtype, device=quantiles.device)  # noqa: E731
+        offset = fma(quantiles, scalar(k), scalar(alpha))
+    return fma(valid_count, quantiles, offset) - 1
 
 
 def _lerp(left, right, gamma):
-    # Symmetric lerp for fp accuracy — mirrors nbutils.py:77-106.
+    # Symmetric lerp for fp accuracy — mirrors nbutils.py:77-106 (products fused).
     diff = right - left
-    out = left + diff * gamma
-    return torch.where(gamma >= 0.5, right - diff * (1 - gamma), out)
+    out = fma(diff, gamma, left)
+    return torch.where(gamma >= 0.5, fma(-diff, 1 - gamma, right), out)
 
 
 def _quantile_on_sorted(sorted_x, valid, quantiles, alpha, beta, sentinel: str = "nan"):
@@ -334,23 +344,31 @@ def _windowed_chunks(x, plan, quantiles, *, static: bool, alpha: float = 1.0, be
 
 
 def windowed_group_quantile(x, plan, quantiles, alpha: float = 1.0, beta: float = 1.0):
-    """Windowed grouped quantile through shared per-group sorts and merges.
+    """Windowed grouped quantile: the same order statistics as
+    ``grouped_nan_quantile(x, gi.gather_idx, q)`` for windowed dayofyear /
+    "5D" groupings (the same multiset per group, the same type-7
+    semantics), without re-sorting the window-fold amplified gather matrix.
 
-    Selects the same order statistics as ``grouped_nan_quantile(x,
-    gi.gather_idx, q)`` for windowed dayofyear / "5D" groupings (the same
-    multiset per group, the same type-7 semantics), but sorts each window-1
-    list once and merges ``window`` sorted lists per group
-    (``ops/merge.py``) instead of re-sorting the window-fold amplified
-    gather matrix.  Edge groups (year wrap, series ends) take the exact
-    gather+sort path.  With all-finite (or all-NaN) site rows the type-7
-    indices and gammas come from the plan's host-known counts, rounded in
-    numpy op for op; in float32 that can differ from the re-sort oracle's
-    device arithmetic by a few ulp in gamma (up to ~5e-7 relative in the
-    value), with the same selected elements.
+    When ``ops/selquant.py:selection_ok`` holds (interval-shaped windows; on
+    the CPU by default, on CUDA under ``selection_on_tpu=True``) the
+    counting-selection engine computes it in one NaN-exact pass with no host
+    synchronisation, equal to the reference bit for bit on the CPU.
+    Otherwise the merge engine sorts each window-1 list once and merges
+    ``window`` sorted lists per group (``ops/merge.py``).  Its edge groups
+    (year wrap, series ends) take the exact gather+sort path.  With
+    all-finite (or all-NaN) site rows its type-7 indices and gammas come
+    from the plan's host-known counts, rounded in numpy op for op; in
+    float32 that can differ from the re-sort oracle's device arithmetic by a
+    few ulp in gamma (up to ~5e-7 relative in the value), with the same
+    selected elements.
 
     x: [..., T]; ``plan`` a :class:`~xsdba_tpu_torch.utils.grouper.WindowMergePlan`
     (``GroupIndexes.merge_plan``); quantiles [nq].  Returns [..., G, nq].
     """
+    from .selquant import selection_ok, selection_windowed_quantile
+
     x = as_tensor(x)
+    if selection_ok(plan, quantiles, x.device):
+        return selection_windowed_quantile(x, plan, quantiles, alpha=alpha, beta=beta)
     static = _static_ok(plan, quantiles) and _static_safe(x)
     return _windowed_chunks(x, plan, quantiles, static=static, alpha=alpha, beta=beta)

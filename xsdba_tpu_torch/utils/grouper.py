@@ -722,7 +722,7 @@ def _grouper_apply(self, func, da, main_only: bool = False, group_chunk: int | N
     the callable treats groups independently.
     """
     from .container import DataArray
-    from .tensor import as_tensor, nanreduce
+    from .tensor import input_tensor, nanreduce
 
     if not callable(func):
         red = nanreduce(func)
@@ -745,7 +745,7 @@ def _grouper_apply(self, func, da, main_only: bool = False, group_chunk: int | N
         coords[prop] = gi.coord
         return DataArray(out, bdims_f + (prop,), coords, dict(da.attrs), da.name)
     dac = da.move_dim_last("time")
-    x = as_tensor(dac.data)
+    x = input_tensor(dac.data)
     kind, out = _apply_func_chunked(x, gi, func, group_chunk)
     if kind == "transform":
         return DataArray(out, dac.dims, dict(dac.coords), dict(da.attrs), da.name)

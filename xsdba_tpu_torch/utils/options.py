@@ -1,16 +1,14 @@
 """Global/context options — mirrors reference ``options.py:12-83``.
 
-Beyond the reference's two output options, the TPU build exposes its
+Beyond the reference's two output options, the JAX package exposes its
 windowed-quantile ENGINE choices here (the reference's pattern of
-config-as-options, ``options.py:28-83``): which backend computes windowed
-grouped quantiles, its extraction mode, and two Pallas program-shape
-toggles.  Each engine option's process default can also be set by an
-environment variable (``XSDBA_SELECTION_BACKEND=0`` etc.) so an A/B flip
-never needs a source edit.
-
-Engine options are resolved OUTSIDE jit at call sites and threaded into the
-compiled programs as static arguments, so flipping one under ``set_options``
-re-traces correctly (no stale-cache hazard).
+config-as-options, ``options.py:28-83``); the port keeps their names, so one
+``set_options`` call means the same in both packages, and resolves them at
+each call from the data's device.  Each engine option's process default can
+also be set by an environment variable (``XSDBA_SELECTION_BACKEND=0`` etc.).
+The port adds one option of its own, ``device``: where numpy data handed to
+the public entry points is computed (CUDA unless the caller asks for the
+CPU).
 """
 
 from __future__ import annotations
@@ -20,6 +18,7 @@ import os
 
 __all__ = [
     "AS_DATASET",
+    "DEVICE",
     "EXTRA_OUTPUT",
     "EXTRACT_FLAT",
     "EXTRACT_MODE",
@@ -35,20 +34,21 @@ __all__ = [
 
 EXTRA_OUTPUT = "extra_output"
 AS_DATASET = "as_dataset"
-#: Allow the counting-selection backend for windowed grouped quantiles
-#: (ops/selquant.py).  False forces the merge cascade everywhere.
+#: Allow the counting-selection engine for windowed grouped quantiles
+#: (ops/selquant.py).  False forces the merge engine everywhere.
 SELECTION_BACKEND = "selection_backend"
-#: Route TPU windowed quantiles through the selection backend too (the
-#: measured default keeps the merge cascade on TPU; docs/PERFORMANCE.md
-#: "Selection-class roofline").
+#: Route CUDA windowed quantiles through the selection engine too.  The
+#: name is the JAX package's (there: TPU); in the port the CPU selects by
+#: default and CUDA takes the merge engine unless this is True.
 SELECTION_ON_TPU = "selection_on_tpu"
-#: Selection extraction engine: "auto" (per-backend measured default:
-#: gather on CPU, emit on TPU), "emit", or "gather".
+#: Selection extraction engine: "auto" and "gather" take the per-query
+#: block gather; "emit" (the JAX package's dense emission) is not ported
+#: and raises NotImplementedError.
 SELECTION_MODE = "selection_mode"
-#: Selection stage-1 sort implementation: "auto" (Pallas bitonic network on
-#: TPU f32 — measured 14% under ``lax.sort`` at the heavy shape,
-#: docs/PERFORMANCE.md; ``lax.sort`` elsewhere), "pallas", "xla" (the same
-#: network lowered through plain XLA — the CPU-testable form), or "lax".
+#: Selection stage-1 sort: "auto" (the row sort's CUDA kernel, K7, for
+#: float32 on CUDA; a stable ``torch.sort`` elsewhere), "pallas" (the row
+#: sort's wrapper: K7 on a CUDA tensor, its plain twin on a CPU tensor),
+#: "xla" (the plain twin), or "lax" (a stable ``torch.sort``).
 SELECTION_SORT = "selection_sort"
 #: Run all merge-fold classes in ONE Pallas program (measured faster on
 #: v5e) vs per-class launches.
@@ -63,6 +63,11 @@ EXTRACT_FLAT = "extract_flat"
 #: Precision.HIGHEST — bit-exact for f32, see ops/quantile.py), or "auto"
 #: (the measured per-backend default; honors ``extract_flat=True``).
 EXTRACT_MODE = "extract_mode"
+#: Device of numpy data entering the public entry points (``train``,
+#: ``adjust``, ``Grouper.apply``): "cuda" (the default; raises when no GPU
+#: is available) or "cpu", or a "cuda:N" device.  Tensors keep their own
+#: device.
+DEVICE = "device"
 
 
 def _env_bool(name: str, default: bool) -> bool:
@@ -82,12 +87,14 @@ _DEFAULTS = {
     FUSE_FOLD_CLASSES: _env_bool("XSDBA_FUSE_FOLD_CLASSES", True),
     EXTRACT_FLAT: _env_bool("XSDBA_EXTRACT_FLAT", False),
     EXTRACT_MODE: os.environ.get("XSDBA_EXTRACT_MODE", "auto"),
+    DEVICE: "cuda",
 }
 
 _VALIDATORS = {
     SELECTION_MODE: lambda v: v in ("auto", "emit", "gather"),
     SELECTION_SORT: lambda v: v in ("auto", "pallas", "xla", "lax"),
     EXTRACT_MODE: lambda v: v in ("auto", "strip", "flat", "matmul"),
+    DEVICE: lambda v: str(v).split(":")[0] in ("cpu", "cuda"),
 }
 # process-global, like the reference's plain OPTIONS dict (options.py:12-83):
 # a main-thread set_options(...) must be visible to worker threads

@@ -1,7 +1,9 @@
 """Small tensor helpers shared by the containers and the ops.
 
-Data arrives as numpy arrays or torch tensors.  A tensor stays on its device;
-a numpy array becomes a CPU tensor.  Nothing here picks a device on its own.
+Data arrives as numpy arrays or torch tensors.  A tensor stays on its device.
+Inside the ops a numpy array becomes a tensor on the device it is asked for
+(the CPU by default); numpy data entering through the public surface goes
+to the ``device`` option's device (:func:`input_tensor`).
 """
 
 from __future__ import annotations
@@ -11,6 +13,9 @@ import torch
 
 __all__ = [
     "as_tensor",
+    "default_device",
+    "fma",
+    "input_tensor",
     "nanmax",
     "nanmin",
     "nanreduce",
@@ -30,6 +35,77 @@ def as_tensor(x, dtype=None, device=None) -> torch.Tensor:
     if not a.flags.writeable:  # read-only (broadcast views, loaded files): torch wants its own copy
         a = a.copy()
     return torch.as_tensor(a, dtype=dtype, device=device)
+
+
+def default_device() -> torch.device:
+    """The ``device`` option as a device.  Raises a ``RuntimeError`` when it
+    names CUDA and no GPU is available: nothing falls back to the CPU."""
+    from .options import DEVICE, get_option
+
+    dev = torch.device(get_option(DEVICE))
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "xsdba_tpu_torch computes numpy inputs on CUDA by default, but torch.cuda.is_available() is False; "
+            "ask for the CPU with xsdba_tpu_torch.set_options(device='cpu') or pass CPU tensors."
+        )
+    return dev
+
+
+def input_tensor(x) -> torch.Tensor:
+    """Data entering through the public surface as a tensor: a tensor keeps
+    its device, anything else goes to :func:`default_device`."""
+    if isinstance(x, torch.Tensor):
+        return x
+    return as_tensor(x, device=default_device())
+
+
+def _two_sum(a, b):
+    """(s, e): s = a + b rounded, and s + e == a + b exactly (Knuth)."""
+    s = a + b
+    bb = s - a
+    return s, (a - (s - bb)) + (b - bb)
+
+
+def _two_prod(a, b):
+    """(p, e): p = a * b rounded, and p + e == a * b exactly (float64;
+    Dekker's product with Veltkamp's split)."""
+
+    def split(x):
+        t = 134217729.0 * x  # 2^27 + 1
+        hi = t - (t - x)
+        return hi, x - hi
+
+    ah, al = split(a)
+    bh, bl = split(b)
+    p = a * b
+    return p, ((ah * bh - p) + ah * bl + al * bh) + al * bl
+
+
+def _round_to_odd(s, e):
+    """The sum s + e (s rounded, e its exact error) rounded to odd: s when
+    exact or odd, else s's neighbour towards s + e.  A non-finite s has a
+    NaN error and stays as it is."""
+    inexact_even = (e.abs() > 0) & ((s.view(torch.int64) & 1) == 0)
+    return torch.where(inexact_even, torch.nextafter(s, e * torch.inf), s)
+
+
+def fma(a, b, c) -> torch.Tensor:
+    """``a * b + c`` rounded once, for float32 or float64 tensors.
+
+    The JAX package's compiled programs contract ``x * y + z`` into fused
+    multiply-adds on the CPU (its quantile virtual index and lerp, its
+    table-lookup blend), so the port rounds those once too, on every
+    device.  Float32 goes through float64, where the product is exact and
+    the sum, rounded to odd, rounds to float32 as the fused result would;
+    float64 uses Boldo and Melquiond's emulation through rounding to odd,
+    and a non-finite result there takes the plain expression, which agrees
+    with it."""
+    if a.dtype == torch.float32:
+        return _round_to_odd(*_two_sum(a.double() * b.double(), c.double())).float()
+    uh, ul = _two_prod(a, b)
+    th, tl = _two_sum(c, uh)
+    out = th + _round_to_odd(*_two_sum(tl, ul))
+    return torch.where(torch.isfinite(out), out, a * b + c)
 
 
 def to_numpy(x) -> np.ndarray:
