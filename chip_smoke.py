@@ -17,9 +17,11 @@ Phases, each reported on lines of its own:
    window-5 path's slab, each printing how many values differ under ``==``
    (-0.0 equals +0.0); the key–payload row sort (K7) on the selection
    path's stage-1 input (ref and hist of 224 sites, [448, 54750] ->
-   [448, 65536]), on one row of 2^20 and on rows with ties, +-0.0 and
-   +inf, printing the keys that differ under ``==`` and whether the
-   (key, payload) multisets are equal;
+   [448, 65536]), on one row of 2^20, on rows with ties, +-0.0 and +inf,
+   at a tile less one, a tile and a tile and one, and on all-equal rows,
+   printing the keys that differ under ``==`` and whether the (key,
+   payload) multisets are equal; and the fold's second variant (its
+   merge buffer in the output row) at f64, window 31 and 900 values a row;
 4. main path: ``QuantileDeltaMapping.train(...).adjust(...)`` on CUDA
    tensors of 512 sites x 150 noleap years, f32, ``nquantiles=50``,
    monthly groups; finite, through K1, and equal to the port's CPU path on
@@ -44,7 +46,9 @@ Phases, each reported on lines of its own:
    EQM (merge) and selection steps in gridpoint-years/s (CUDA events), the
    public calls on the same data (host clock), each kernel against its twin
    (CUDA events, in turns) and against one PyTorch call computing the same
-   function where there is one, the peak device memory of the heavy and
+   function where there is one (K7's ``torch.sort`` sorts the keys alone,
+   without the payload; K5's sorts the top level's runs, one of its four
+   levels), the peak device memory of the heavy and
    selection steps and of the heavy public call, and for each fused step
    the five kernels that take the most device time plus the port's own
    kernels (``torch.profiler``).
@@ -416,12 +420,25 @@ def main() -> int:
     merged5 = merge.merged_window_rows(ordered5, SMALL_WINDOW, G, ymax=ymax)
     err["K4"] = _compare(f"K4 per-group merge w={SMALL_WINDOW}", merged5, merge.merged_window_rows_reference(ordered5, SMALL_WINDOW, G, merged5.shape[-1]))
     del merged5
+    # the fold's second variant: f64, window 31, 900 values a row (223,200
+    # bytes, the merge rounds' second buffer in the output row)
+    big = np.random.default_rng(5).normal(0, 1, (2, 48, 1024))
+    big[..., 900:] = np.inf
+    big = merge.sort_rows_alternating(torch.from_numpy(big).to(dev))
+    assert not merge.fold_scratch_in_shared(31 * 900, 8, merge.fold_smem_limit(torch.float64, dev))
+    _compare("K6 window fold f64 w=31 ymax=900 m=1024 (scratch in the output row)",
+             merge.fold_windows(big, merge.build_levels(big, L), HEAVY_WINDOW, 3, ymax=900),
+             merge.merged_window_rows_reference(big, HEAVY_WINDOW, 3, HEAVY_WINDOW * 900))
+    del big
     sth, sel_np = heavy_problem(SEL_SITES, HEAVY_YEARS)
     sref, shist, ssim = (torch.from_numpy(a).to(dev) for a in sel_np)
     key7, lab7 = selection_stage1(sref, shist, plan)
     err["K7"] = _compare_sort("selection stage 1", key7, lab7)
     _compare_sort("one row of 2^20", *sort_inputs(1, 1 << 20, seed=4, device=dev))
     _compare_sort("ties, +-0.0 and +inf", *sort_inputs(3, 1000, seed=3, device=dev))
+    for T in (sort.TILE - 1, sort.TILE, sort.TILE + 1):
+        _compare_sort(f"T = {T} (tile {sort.TILE})", *sort_inputs(2, T, seed=T, device=dev))
+    _compare_sort("all-equal rows", torch.full((2, 54750), 2.5, device=dev), lab7[:2].contiguous())
 
     # 4. headline QDM through the public API
     ref, hist, sim = (torch.from_numpy(a).to(dev) for a in (ref_np, hist_np, sim_np))
@@ -645,7 +662,7 @@ def main() -> int:
     }
     del folded, merged5
 
-    ours = ("interp_table_3d_kernel", "sort_rows_alt_kernel", "build_level_kernel", "fold_windows_kernel", "tile_sort_kernel", "merge_pass_kernel")
+    ours = ("interp_table_3d_kernel", "sort_rows_alt_kernel", "build_level_kernel", "fold_windows_kernel", "radix_tile_sort_kernel", "merge_pass_kernel")
     _profile("one fused QDM step", qdm_step, ours)
     _profile(f"one fused windowed EQM step (doy+{HEAVY_WINDOW})", heavy_step, ours)
     _profile(f"one fused selection EQM step (doy+{HEAVY_WINDOW}, {SEL_SITES} sites)", sel_step, ours)

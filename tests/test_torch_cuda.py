@@ -123,7 +123,7 @@ def test_row_sort_matches_twin(cuda, dtype, B, Dp, m):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("window,m,ymax", [(9, 16, 11), (24, 16, 16), (31, 256, 150), (31, 8, 5)])
+@pytest.mark.parametrize("window,m,ymax", [(9, 16, 11), (13, 32, 20), (24, 16, 16), (31, 256, 150), (31, 8, 5)])
 def test_level_build_and_fold_match_twins(cuda, dtype, window, m, ymax):
     G, L = 40, merge.n_levels(window)
     Dp = -(-(G - 1 + window) // (1 << L)) * (1 << L)
@@ -138,10 +138,11 @@ def test_level_build_and_fold_match_twins(cuda, dtype, window, m, ymax):
     assert _equal(got, merge.merged_window_rows_reference(ordered, window, G, window * ymax))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("window", [1, 3, 5, 8])
-def test_per_group_merge_matches_twin(cuda, window):
+def test_per_group_merge_matches_twin(cuda, window, dtype):
     G, m, ymax = 30, 32, 20
-    ordered = merge.sort_rows_alternating(_slab(4, 40, m, ymax, seed=window, device=cuda))
+    ordered = merge.sort_rows_alternating(_slab(4, 40, m, ymax, seed=window, dtype=dtype, device=cuda))
     before = merge.launches["merged_window_rows"]
     got = merge.merged_window_rows(ordered, window, G, ymax=ymax)
     torch.cuda.synchronize()
@@ -155,6 +156,59 @@ def test_merge_wrappers_raise_past_their_limits(cuda):
     ordered = merge.sort_rows_alternating(_slab(1, 48, 4096, 4096, seed=1, device=cuda))
     with pytest.raises(ValueError, match="shared memory"):
         merge.merged_window_rows(ordered, 31, 4)
+    # the fold takes every row whose staging buffer fits, and no longer row
+    limit = merge.fold_smem_limit(torch.float32, cuda)
+    ymax = limit // (31 * 4)
+    ordered = merge.sort_rows_alternating(_slab(1, 40, 2048, ymax, seed=2, device=cuda))
+    got = merge.merged_window_rows(ordered, 31, 2, ymax=ymax)
+    torch.cuda.synchronize()
+    assert _equal(got, merge.merged_window_rows_reference(ordered, 31, 2, 31 * ymax))
+    with pytest.raises(ValueError, match="shared memory"):
+        merge.merged_window_rows(ordered, 31, 2, ymax=ymax + 1)
+
+
+@pytest.mark.parametrize("call", ["fold", "merge"])
+def test_f64_window_31_of_900_values_runs(cuda, call):
+    """f64, window 31, ymax 900, m 1024: 223,200 bytes of merged row, the
+    fold's second buffer in the output row; it ran before the merge-path
+    redesign and must still run."""
+    G, m, ymax, L = 3, 1024, 900, merge.n_levels(31)
+    assert not merge.fold_scratch_in_shared(31 * ymax, 8, merge.fold_smem_limit(torch.float64, cuda))
+    ordered = merge.sort_rows_alternating(_slab(2, 48, m, ymax, seed=31, dtype=torch.float64, device=cuda))
+    if call == "fold":
+        levels = merge.build_levels(ordered, L)
+        got = merge.fold_windows(ordered, levels, 31, G, ymax=ymax)
+    else:
+        got = merge.merged_window_rows(ordered, 31, G, ymax=ymax)
+    torch.cuda.synchronize()
+    assert tuple(got.shape) == (2, G, 31 * ymax)
+    assert _equal(got, merge.merged_window_rows_reference(ordered, 31, G, 31 * ymax))
+
+
+def _tie_slab(B, Dp, m, ymax, seed, dtype, device):
+    """[B, Dp, m] rows drawn from {-1, -0.0, +0.0, 1} (+inf past ``ymax``):
+    nearly every value ties."""
+    rng = np.random.default_rng(seed)
+    x = rng.choice(np.array([-1.0, -0.0, 0.0, 1.0]), (B, Dp, m))
+    x[:, :, ymax:] = np.inf
+    return torch.as_tensor(np.ascontiguousarray(x[..., rng.permutation(m)]), dtype=dtype, device=device)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("window", [5, 31])
+def test_fold_and_merge_on_ties_and_signed_zeros(cuda, dtype, window):
+    G, m, ymax = 20, 64, 50
+    L = merge.n_levels(window)
+    Dp = -(-(G - 1 + window) // 16) * 16
+    ordered = merge.sort_rows_alternating(_tie_slab(3, Dp, m, ymax, seed=window, dtype=dtype, device=cuda))
+    want = merge.merged_window_rows_reference(ordered, window, G, window * ymax)
+    got = merge.merged_window_rows(ordered, window, G, ymax=ymax)
+    torch.cuda.synchronize()
+    assert _equal(got, want)
+    if window >= 9:
+        got = merge.fold_windows(ordered, merge.build_levels(ordered, L), window, G, ymax=ymax)
+        torch.cuda.synchronize()
+        assert _equal(got, want)
 
 
 # ------------------------------------------------------------- windowed EQM
@@ -191,20 +245,39 @@ def test_public_windowed_eqm_on_cuda_matches_cpu(cuda, window, calendar, nan):
 # ------------------------------------------------------------ K7, K2
 
 
-@pytest.mark.parametrize("B,T", [(1, 1), (2, 128), (3, 1000), (2, 4097), (2, 8192), (4, 54750), (1, 1 << 20), (0, 300)])
-def test_row_sort_with_payload_matches_twin(cuda, B, T):
-    key, lab = sort_inputs(B, T, seed=T, device=cuda)
+def _check_sort(key, lab):
+    B, T = key.shape
     before = sort.launches
     got_k, got_l = sort.sort_rows_with_payload(key, lab)
     torch.cuda.synchronize()
     Tp = sort.padded_length(T)
-    assert sort.launches == before + (0 if B == 0 else 1 + max(Tp // sort.TILE, 1).bit_length() - 1)
+    assert sort.launches == before + sort.launch_count(B, T)
     want_k, want_l = sort.sort_rows_with_payload_reference(key, lab)
     assert got_k.is_cuda and tuple(got_k.shape) == (B, Tp)
     assert _equal(got_k, want_k)
     gk, gl = pair_sorted(got_k, got_l)
     wk, wl = pair_sorted(want_k, want_l)
     assert _equal(gk, wk) and _equal(gl, wl)
+
+
+@pytest.mark.parametrize("B,T", [
+    (1, 1), (2, 128), (3, 1000), (2, 4097), (2, 8192), (4, 54750), (1, 1 << 20), (0, 300),
+    (3, 16383), (3, 16384), (3, 16385), (1, 1 << 22),  # a tile less one, a tile, a tile and one; the longest row
+])
+def test_row_sort_with_payload_matches_twin(cuda, B, T):
+    _check_sort(*sort_inputs(B, T, seed=T, device=cuda))
+
+
+@pytest.mark.parametrize("case", ["all equal", "signed zeros and inf"])
+@pytest.mark.parametrize("T", [1000, 54750])
+def test_row_sort_with_payload_on_ties(cuda, case, T):
+    rng = np.random.default_rng(T)
+    if case == "all equal":
+        key = np.full((3, T), 2.5, dtype=np.float32)
+    else:
+        key = rng.choice(np.array([-0.0, 0.0, np.inf], dtype=np.float32), (3, T))
+    lab = rng.integers(0, 1 << 20, (3, T)).astype(np.int32)
+    _check_sort(torch.from_numpy(key).to(cuda), torch.from_numpy(lab).to(cuda))
 
 
 @pytest.mark.parametrize("R,L,nq", [(1, 1, 2), (7, 2049, 50), (5, 333, 64), (4, 100, 1), (512, 4650, 50)])

@@ -126,3 +126,15 @@ def test_level_count_and_row_directions_equal_reference():
 def test_wrappers_reject_what_the_kernels_do_not_take(call, err):
     with pytest.raises(err):
         call(torch.as_tensor(_slab(7, sort=True)))
+
+
+@pytest.mark.parametrize("n,elem,limit,shared", [
+    (31 * 150, 4, 232448, True),      # the heavy fold, f32: both buffers in shared memory
+    (31 * 150, 8, 232448, True),
+    (5 * 150, 4, 232448, True),       # the window-5 merge
+    (31 * 900, 8, 231600, False),     # f64, window 31, 900 values: the output row is the second buffer
+    (29056, 4, 232448, True),         # exactly two buffers
+    (29057, 4, 232448, False),
+])
+def test_fold_variant_follows_shared_memory(n, elem, limit, shared):
+    assert M.fold_scratch_in_shared(n, elem, limit) is shared

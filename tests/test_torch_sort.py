@@ -11,6 +11,9 @@ pads (+inf, 0).  The CUDA kernel is held to the twin on the card by
 ``tests/test_torch_cuda.py``.
 """
 
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -78,3 +81,48 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(case, err):
         key, lab = torch.zeros((1, (1 << 22) + 1)), torch.zeros((1, (1 << 22) + 1), dtype=torch.int32)
     with pytest.raises(err):
         sort.sort_rows_with_payload(key, lab)
+
+
+def test_tile_matches_the_kernel_source():
+    src = (Path(sort.__file__).resolve().parents[1] / "csrc" / "sort_kernel.cu").read_text()
+    assert int(re.search(r"constexpr int kTile = (\d+);", src).group(1)) == sort.TILE == 16384
+
+
+@pytest.mark.parametrize("Tp,passes", [(128, 0), (8192, 0), (16384, 0), (32768, 1), (65536, 2), (1 << 20, 6), (1 << 22, 8)])
+def test_merge_passes_halve_to_one_tile(Tp, passes):
+    assert sort.merge_passes(Tp) == passes
+    # each pass doubles the sorted runs, from one tile (or the whole row) to Tp
+    assert min(Tp, sort.TILE) << passes == Tp
+
+
+@pytest.mark.parametrize("B,T,n", [(0, 300, 0), (1, 1, 1), (3, 16383, 1), (3, 16384, 1), (3, 16385, 2), (448, 54750, 3), (1, 1 << 20, 7), (1, 1 << 22, 9)])
+def test_launch_count_is_one_tile_sort_and_the_passes(B, T, n):
+    assert sort.launch_count(B, T) == n
+
+
+def _key_classes():
+    tiny = np.finfo(np.float32).tiny
+    sub = np.array([tiny / 2, tiny / 1024, np.float32(1e-45)], dtype=np.float32)  # subnormals
+    rng = np.random.default_rng(0)
+    vals = np.concatenate([
+        [-np.inf, np.inf, 0.0, -0.0, tiny, -tiny, np.finfo(np.float32).max, -np.finfo(np.float32).max],
+        sub, -sub, rng.normal(0, 1, 40), -np.exp(rng.normal(0, 10, 20)), np.exp(rng.normal(0, 10, 20)),
+    ]).astype(np.float32)
+    return torch.from_numpy(vals)
+
+
+def test_key_bits_order_as_the_floats():
+    x = _key_classes()
+    bits = sort.key_bits_reference(x)
+    assert bits.dtype == torch.int64 and bool(((bits >= 0) & (bits < 1 << 32)).all())
+    a, b = x[:, None], x[None, :]
+    ba, bb = bits[:, None], bits[None, :]
+    zeros = (a == 0) & (b == 0)  # +-0.0 may tie either way
+    assert bool(((a < b) == (ba < bb))[~zeros].all())
+    assert bool(((a == b) == (ba == bb))[~zeros].all())
+    # the image is one-to-one: ordering by it sorts the floats
+    order = torch.argsort(bits)
+    assert bool((x[order][1:] >= x[order][:-1]).all())
+    assert int(sort.key_bits_reference(torch.tensor([-0.0]))) + 1 == int(sort.key_bits_reference(torch.tensor([0.0])))
+    # +inf, the pad, lies above every finite key
+    assert int(sort.key_bits_reference(torch.tensor([np.inf]))) == int(bits.max())

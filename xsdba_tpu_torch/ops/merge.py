@@ -26,6 +26,7 @@ wrapper (the level build launches once per level; reset by assignment).
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -37,6 +38,8 @@ __all__ = [
     "build_levels",
     "build_levels_reference",
     "dyadic_segments",
+    "fold_scratch_in_shared",
+    "fold_smem_limit",
     "fold_windows",
     "fold_windows_reference",
     "launches",
@@ -58,7 +61,7 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "xsdba_sort_rows_alt": ([_P, _P, _LL, _I, _I, _I, _I, _P], _I),
     "xsdba_build_levels": ([_P, _P, _I, _I, _I, _I, _I, _I, _P], _I),
-    "xsdba_fold_windows": ([_P, _P, _P] + [_I] * 9 + [_P], _I),
+    "xsdba_fold_windows": ([_P, _P, _P] + [_I] * 10 + [_P], _I),
     "xsdba_fold_smem_limit": ([_I, _I], _LL),
 }
 
@@ -237,24 +240,45 @@ def _fold_args(s, window: int, n_groups: int, max_rows: int, ymax):
     return ymax
 
 
+def fold_scratch_in_shared(n_values: int, elem_size: int, limit: int) -> bool:
+    """Which fold variant a row of ``n_values`` merged values takes: True
+    when both merge buffers fit in the ``limit`` bytes of shared memory a
+    block may take, False when only the staging buffer does (the second
+    buffer is then the block's output row in device memory).  A row whose
+    staging buffer alone does not fit is refused by the wrapper."""
+    return 2 * n_values * elem_size <= limit
+
+
+def fold_smem_limit(dtype, device) -> int:
+    """Bytes of shared memory a fold block may take on the CUDA ``device``."""
+    device = torch.device(device)
+    return _fold_smem_limit(torch.empty((), dtype=dtype).element_size(), 0 if device.index is None else device.index)
+
+
+@functools.cache
+def _fold_smem_limit(elem_size: int, index: int) -> int:
+    limit = _library().xsdba_fold_smem_limit(elem_size, index)
+    if limit < 0:
+        raise RuntimeError(f"reading the fold's shared-memory limit failed: cudaError {-limit}")
+    return limit
+
+
 def _fold_launch(name: str, s, levels, window: int, n_groups: int, L: int, ymax: int):
     B, Dp, m = s.shape
     out = torch.empty((B, n_groups, window * ymax), dtype=s.dtype, device=s.device)
     if out.numel() == 0:
         return out
-    lib = _library()
     need = window * ymax * s.element_size()
-    limit = lib.xsdba_fold_smem_limit(s.element_size(), s.device.index)
-    if limit < 0:
-        raise RuntimeError(f"{name}: reading the shared-memory limit failed: cudaError {-limit}")
+    limit = fold_smem_limit(s.dtype, s.device)
     if need > limit:
         raise ValueError(
             f"{name}: a window of {window} rows of {ymax} values needs {need} bytes of shared memory, "
             f"more than the {limit} a block may take on {torch.cuda.get_device_name(s.device)}"
         )
-    rc = lib.xsdba_fold_windows(
+    rc = _library().xsdba_fold_windows(
         s.data_ptr(), 0 if levels is None else levels.data_ptr(), out.data_ptr(),
-        B, Dp, m, L, window, n_groups, ymax, s.element_size(), s.device.index, _stream(s),
+        B, Dp, m, L, window, n_groups, ymax, s.element_size(),
+        int(fold_scratch_in_shared(window * ymax, s.element_size(), limit)), s.device.index, _stream(s),
     )
     _raise_on(rc, name)
     launches[name] += 1

@@ -11,8 +11,10 @@ only the multiset of (key, payload) pairs.
 
 On a CPU tensor :func:`sort_rows_with_payload` runs the plain twin
 :func:`sort_rows_with_payload_reference`; on a CUDA tensor it launches the
-kernel of ``csrc/sort_kernel.cu`` or raises.  ``launches`` counts the kernel
-launches (one tile sort and one per merge pass; reset by assignment).
+kernel of ``csrc/sort_kernel.cu`` or raises: a radix sort of tiles of
+``TILE`` pairs in shared memory, then ``merge_passes(Tp)`` merge-path passes.
+``launches`` counts the kernel launches (``launch_count``: one tile sort and
+one per merge pass; reset by assignment).
 """
 
 from __future__ import annotations
@@ -23,13 +25,22 @@ import torch
 
 from .cuda import _build
 
-__all__ = ["launches", "padded_length", "sort_rows_with_payload", "sort_rows_with_payload_reference"]
+__all__ = [
+    "TILE",
+    "key_bits_reference",
+    "launch_count",
+    "launches",
+    "merge_passes",
+    "padded_length",
+    "sort_rows_with_payload",
+    "sort_rows_with_payload_reference",
+]
 
 #: kernel launches made by :func:`sort_rows_with_payload` (reset by assignment)
 launches = 0
 
-#: pairs one block sorts in shared memory (``kTile`` in the source)
-TILE = 4096
+#: pairs one block radix-sorts in shared memory (``kTile`` in the source)
+TILE = 16384
 #: longest padded row the kernel takes (``interval_membership`` refuses T >= 2^22)
 MAX_LENGTH = 1 << 22
 _LANES = 128
@@ -44,6 +55,27 @@ def padded_length(T: int) -> int:
     while rows * _LANES < T:
         rows *= 2
     return rows * _LANES
+
+
+def merge_passes(Tp: int) -> int:
+    """Merge passes after the tile sort for a padded row of ``Tp``:
+    log2(Tp / TILE), 0 when a row fits in one tile."""
+    return max(Tp // TILE, 1).bit_length() - 1
+
+
+def launch_count(B: int, T: int) -> int:
+    """Kernel launches of one call on [B, T]: one tile sort and one launch
+    per merge pass, none when B is 0."""
+    return 0 if B == 0 else 1 + merge_passes(padded_length(T))
+
+
+def key_bits_reference(key):
+    """Twin of the kernel's order-preserving key map: each float32 of
+    ``key`` as the uint32 image that orders as the floats do (the sign bit
+    flipped for non-negatives, every bit for negatives), held in int64.
+    -0.0 maps just below +0.0."""
+    bits = key.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    return torch.where(bits >= 1 << 31, bits ^ 0xFFFFFFFF, bits ^ 0x80000000)
 
 
 def _pad(key, lab):
@@ -93,7 +125,7 @@ def sort_rows_with_payload(key, lab):
     out_l = torch.empty((B, Tp), dtype=lab.dtype, device=lab.device)
     if B == 0:
         return out_k, out_l
-    passes = max(Tp // TILE, 1).bit_length() - 1
+    passes = merge_passes(Tp)
     tmp_k = torch.empty_like(out_k) if passes else out_k
     tmp_l = torch.empty_like(out_l) if passes else out_l
     stream = torch.cuda.current_stream(key.device).cuda_stream
@@ -103,5 +135,5 @@ def sort_rows_with_payload(key, lab):
     )
     if rc != 0:
         raise RuntimeError(f"sort_rows_with_payload kernel launch failed: cudaError {rc}")
-    launches += 1 + passes
+    launches += launch_count(B, T)
     return out_k, out_l
