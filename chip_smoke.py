@@ -13,15 +13,18 @@ Phases, each reported on lines of its own:
    shape and the 2-D lookup (K2) at the headline [512, 54750] rows, each
    with every edge case it has, bit for bit; the row sort (K3), the level
    build (K5) and the window fold (K6) on the heavy path's slab of 512 rows
-   (ref and hist of 256 sites), and the per-group merge (K4) on the
+   (ref and hist of 256 sites), K3 also on its rows cut to 32 values and
+   padded with +inf to 1024 (the warp sort at 1 and 32 values a lane) and
+   to 2048 (the long-row variant), and the per-group merge (K4) on the
    window-5 path's slab, each printing how many values differ under ``==``
    (-0.0 equals +0.0); the key–payload row sort (K7) on the selection
    path's stage-1 input (ref and hist of 224 sites, [448, 54750] ->
    [448, 65536]), on one row of 2^20, on rows with ties, +-0.0 and +inf,
    at a tile less one, a tile and a tile and one, and on all-equal rows,
    printing the keys that differ under ``==`` and whether the (key,
-   payload) multisets are equal; and the fold's second variant (its
-   merge buffer in the output row) at f64, window 31 and 900 values a row;
+   payload) multisets are equal; and the second variants of the level
+   build (merging in device memory) and of the fold (its merge buffer in
+   the output row) at f64, window 31 and 900 values a row (m = 1024);
 4. main path: ``QuantileDeltaMapping.train(...).adjust(...)`` on CUDA
    tensors of 512 sites x 150 noleap years, f32, ``nquantiles=50``,
    monthly groups; finite, through K1, and equal to the port's CPU path on
@@ -45,16 +48,20 @@ Phases, each reported on lines of its own:
 6. times (2 warm-ups, median of 5 and the spread): the fused QDM, windowed
    EQM (merge) and selection steps in gridpoint-years/s (CUDA events), the
    public calls on the same data (host clock), each kernel against its twin
-   (CUDA events, in turns) and against one PyTorch call computing the same
-   function where there is one (K7's ``torch.sort`` sorts the keys alone,
+   (CUDA events, in turns; a kernel's sample is the mean of 10 calls queued
+   behind a spin of the card, so the host's launch cost stays out of it)
+   and against one PyTorch call computing the same function where there is
+   one (timed the same way; K7's ``torch.sort`` sorts the keys alone,
    without the payload; K5's sorts the top level's runs, one of its four
-   levels), the peak device memory of the heavy and
-   selection steps and of the heavy public call, and for each fused step
-   the five kernels that take the most device time plus the port's own
-   kernels (``torch.profiler``).
+   levels), K3's long-row variant at m = 2048, the peak device memory of
+   the heavy and selection steps and of the heavy public call, and for each
+   fused step the five kernels that take the most device time plus the
+   port's own kernels (``torch.profiler``).
 
 Each path's kernel launches are counted from 0 just before it runs and read
 just after; launches made to compare a kernel with its twin do not count.
+Each merge wrapper counts one launch a call (the level build builds every
+level in one launch).
 The line before the last is one JSON object describing the kernels (K1's
 launches are the QDM path's, K2's the ``group="time"`` path's, K3, K5 and
 K6's the heavy path's, K4's the window-5 path's, K7's the selection
@@ -96,6 +103,9 @@ SEL_SITES, SEL_CHECK, SEL_NAN_CHECK = 224, 4, 8
 TOL = dict(rtol=2e-6, atol=2e-6)
 # H100 SXM peaks: HBM bytes/s, float32 FLOP/s
 PEAK_BYTES, PEAK_OPS = 3.35e12, 67e12
+# a kernel's time: the mean of KERNEL_BATCH back-to-back calls, queued
+# behind a spin of SPIN_CYCLES (~10 ms) while the host launches them
+KERNEL_BATCH, SPIN_CYCLES = 10, 20_000_000
 _SRC = "xsdba_tpu_torch/csrc/"
 _PALLAS = "xsdba_tpu/ops/pallas/"
 KERNELS = {
@@ -212,6 +222,15 @@ def sort_inputs(B, T, seed=0, device="cpu"):
     return torch.from_numpy(x).to(device), torch.from_numpy(lab).to(device)
 
 
+def widened(slab, width):
+    """The slab [B, Dp, m] with each row cut to ``width`` values, or padded
+    with +inf to ``width``."""
+    if width <= slab.shape[-1]:
+        return slab[..., :width].contiguous()
+    pad = torch.full(slab.shape[:-1] + (width - slab.shape[-1],), torch.inf, dtype=slab.dtype, device=slab.device)
+    return torch.cat([slab, pad], dim=-1)
+
+
 def selection_stage1(ref, hist, plan):
     """The selection step's stage-1 input for [site, time] ref and hist:
     keys [2 * sites, T] (NaN as +inf) and packed labels (0 under NaN)."""
@@ -270,18 +289,24 @@ def _bound(n_bytes, n_ops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def _time_ms(fn, warmup=2, reps=5):
-    """CUDA-event times (ms) of ``reps`` calls after ``warmup`` calls."""
+def _time_ms(fn, warmup=2, reps=5, batch=1):
+    """CUDA-event times (ms) of ``reps`` calls after ``warmup`` calls.  With
+    ``batch`` > 1 a sample is the mean of that many back-to-back calls
+    queued behind a spin of the card (``SPIN_CYCLES``), so that the host's
+    cost of launching them stays out of it: the device time of a kernel."""
     for _ in range(warmup):
         fn()
     out = []
     for _ in range(reps):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        if batch > 1:
+            torch.cuda._sleep(SPIN_CYCLES)
         start.record()
-        fn()
+        for _ in range(batch):
+            fn()
         end.record()
         end.synchronize()
-        out.append(start.elapsed_time(end))
+        out.append(start.elapsed_time(end) / batch)
     return out
 
 
@@ -307,15 +332,16 @@ def _fmt(s):
     return f"median {s['median_ms']:.3f} ms (spread {s['spread']:.3f}, n={s['samples']})"
 
 
-def _in_turns(run_kern, run_twin, reps=5):
+def _in_turns(run_kern, run_twin, reps=5, batch=1):
     """Kernel and twin timed in turns (twin, kernel, kernel, twin, ...)
-    after two warm-ups each; returns (kernel, twin) summaries."""
+    after two warm-ups each, the kernel's samples of ``batch`` calls each;
+    returns (kernel, twin) summaries."""
     _time_ms(run_kern, warmup=2, reps=0)
     _time_ms(run_twin, warmup=2, reps=0)
     kern_ms, twin_ms = [], []
     for i in range(reps):
-        for fn, acc in ((run_twin, twin_ms), (run_kern, kern_ms))[:: 1 if i % 2 == 0 else -1]:
-            acc += _time_ms(fn, warmup=0, reps=1)
+        for fn, acc, n in ((run_twin, twin_ms, 1), (run_kern, kern_ms, batch))[:: 1 if i % 2 == 0 else -1]:
+            acc += _time_ms(fn, warmup=0, reps=1, batch=n)
     return _summary(kern_ms), _summary(twin_ms)
 
 
@@ -403,10 +429,18 @@ def main() -> int:
     G = plan.w1_gather.shape[0] - 2 * plan.half
     slab, _, L = merge_slab(torch.stack([href, hhist]), plan)
     ymax = plan.w1_gather.shape[1]
-    err["K3"] = _compare("K3 row sort", merge.sort_rows_alternating(slab), merge.sort_rows_alternating_reference(slab))
+    err["K3"] = _compare("K3 row sort (warp)", merge.sort_rows_alternating(slab), merge.sort_rows_alternating_reference(slab))
+    # the warp sort at 1 and 32 values a lane, and the long-row variant:
+    # the heavy slab's rows cut to 32 values, padded with +inf to 1024, 2048
+    for width in (32, 1024, 2048):
+        wide = widened(slab, width)
+        variant = "warp" if merge.row_sort_in_warp(width) else "long-row variant"
+        err["K3"] = max(err["K3"], _compare(f"K3 row sort m={width} ({variant})", merge.sort_rows_alternating(wide), merge.sort_rows_alternating_reference(wide)))
+        del wide
     ordered = merge.sort_rows_alternating(slab)
+    assert merge.levels_in_shared(ordered.shape[-1], L, 4, merge.fold_smem_limit(torch.float32, dev))
     levels = merge.build_levels(ordered, L)
-    err["K5"] = _compare(f"K5 level build L={L}", levels, merge.build_levels_reference(ordered, L))
+    err["K5"] = _compare(f"K5 level build L={L} (shared memory)", levels, merge.build_levels_reference(ordered, L))
     folded = merge.fold_windows(ordered, levels, HEAVY_WINDOW, G, ymax=ymax)
     err["K6"] = _compare(f"K6 window fold w={HEAVY_WINDOW}", folded, merge.fold_windows_reference(ordered, levels, HEAVY_WINDOW, G, folded.shape[-1]))
     lead = slice(0, 16)  # the composed twins (sort, levels, fold) on the first 16 rows
@@ -425,11 +459,14 @@ def main() -> int:
     big = np.random.default_rng(5).normal(0, 1, (2, 48, 1024))
     big[..., 900:] = np.inf
     big = merge.sort_rows_alternating(torch.from_numpy(big).to(dev))
-    assert not merge.fold_scratch_in_shared(31 * 900, 8, merge.fold_smem_limit(torch.float64, dev))
+    limit64 = merge.fold_smem_limit(torch.float64, dev)
+    assert not merge.fold_scratch_in_shared(31 * 900, 8, limit64) and not merge.levels_in_shared(1024, L, 8, limit64)
+    big_levels = merge.build_levels(big, L)
+    err["K5"] = max(err["K5"], _compare(f"K5 level build f64 L={L} m=1024 (merged in device memory)", big_levels, merge.build_levels_reference(big, L)))
     _compare("K6 window fold f64 w=31 ymax=900 m=1024 (scratch in the output row)",
-             merge.fold_windows(big, merge.build_levels(big, L), HEAVY_WINDOW, 3, ymax=900),
+             merge.fold_windows(big, big_levels, HEAVY_WINDOW, 3, ymax=900),
              merge.merged_window_rows_reference(big, HEAVY_WINDOW, 3, HEAVY_WINDOW * 900))
-    del big
+    del big, big_levels
     sth, sel_np = heavy_problem(SEL_SITES, HEAVY_YEARS)
     sref, shist, ssim = (torch.from_numpy(a).to(dev) for a in sel_np)
     key7, lab7 = selection_stage1(sref, shist, plan)
@@ -496,6 +533,8 @@ def main() -> int:
         assert bool(torch.isfinite(hscen).all()), f"window {window}: non-finite output"
         need = ("sort_rows_alternating", "build_levels", "fold_windows") if window >= 9 else ("sort_rows_alternating", "merged_window_rows")
         assert all(counts[k] >= 1 for k in need + ("interp_table_3d",)), f"window {window}: launches {counts}"
+        # one launch builds every level: one level build a fold
+        assert counts["build_levels"] == counts["fold_windows"], f"window {window}: launches {counts}"
         with xp.set_options(selection_backend=False):  # the CPU's default engine is selection
             cpu = run_windowed_path(*small, th, window)
         torch.testing.assert_close(hscen[hcut].cpu(), cpu, **TOL)
@@ -608,23 +647,29 @@ def main() -> int:
     print(f"[memory] selection fused step: peak {sel_peak / 2**30:.3f} GiB allocated ({(sel_peak - base) / 2**30:.3f} GiB above "
           f"the {base / 2**30:.3f} GiB held before it)", flush=True)
 
-    times = {"K1": _in_turns(lookup, lookup_twin), "K2": _in_turns(lookup2, lookup2_twin)}
-    times["K7"] = _in_turns(lambda: sort.sort_rows_with_payload(key7, lab7), lambda: sort.sort_rows_with_payload_reference(key7, lab7))
-    times["K3"] = _in_turns(lambda: merge.sort_rows_alternating(slab), lambda: merge.sort_rows_alternating_reference(slab))
-    times["K5"] = _in_turns(lambda: merge.build_levels(ordered, L), lambda: merge.build_levels_reference(ordered, L))
+    kb = dict(batch=KERNEL_BATCH)
+    times = {"K1": _in_turns(lookup, lookup_twin, **kb), "K2": _in_turns(lookup2, lookup2_twin, **kb)}
+    times["K7"] = _in_turns(lambda: sort.sort_rows_with_payload(key7, lab7), lambda: sort.sort_rows_with_payload_reference(key7, lab7), **kb)
+    times["K3"] = _in_turns(lambda: merge.sort_rows_alternating(slab), lambda: merge.sort_rows_alternating_reference(slab), **kb)
+    times["K5"] = _in_turns(lambda: merge.build_levels(ordered, L), lambda: merge.build_levels_reference(ordered, L), **kb)
     width = HEAVY_WINDOW * ymax
     times["K6"] = _in_turns(
         lambda: merge.fold_windows(ordered, levels, HEAVY_WINDOW, G, ymax=ymax),
-        lambda: merge.fold_windows_reference(ordered, levels, HEAVY_WINDOW, G, width),
+        lambda: merge.fold_windows_reference(ordered, levels, HEAVY_WINDOW, G, width), **kb,
     )
     times["K4"] = _in_turns(
         lambda: merge.merged_window_rows(ordered5, SMALL_WINDOW, G, ymax=ymax),
-        lambda: merge.merged_window_rows_reference(ordered5, SMALL_WINDOW, G, SMALL_WINDOW * ymax),
+        lambda: merge.merged_window_rows_reference(ordered5, SMALL_WINDOW, G, SMALL_WINDOW * ymax), **kb,
     )
     shapes = {"K1": tuple(v.shape), "K2": tuple(v2.shape), "K3": tuple(slab.shape), "K5": tuple(ordered.shape), "K6": tuple(ordered.shape),
               "K4": tuple(ordered5.shape), "K7": tuple(key7.shape)}
     for k, (kern, twin) in times.items():
         print(f"[time] {k} {KERNELS[k]['name']} {shapes[k]}: kernel {_fmt(kern)}; plain twin {_fmt(twin)}", flush=True)
+    # K3's long-row variant (off the port's paths at production shapes)
+    wide = widened(slab, 2048)
+    kern, twin = _in_turns(lambda: merge.sort_rows_alternating(wide), lambda: merge.sort_rows_alternating_reference(wide), **kb)
+    print(f"[time] K3 long-row variant {tuple(wide.shape)}: kernel {_fmt(kern)}; plain twin {_fmt(twin)}", flush=True)
+    del wide
 
     # one PyTorch call computing each kernel's function, where there is one:
     # torch.sort of the same rows (K1 and K2 have none)
@@ -640,7 +685,7 @@ def main() -> int:
         "K4": lambda: torch.sort(wins5, dim=-1),
         "K7": lambda: torch.sort(key7, dim=-1, stable=True),
     }
-    library_ms = {k: _summary(_time_ms(fn))["median_ms"] for k, fn in library.items()}
+    library_ms = {k: _summary(_time_ms(fn, **kb))["median_ms"] for k, fn in library.items()}
     for k, ms in library_ms.items():
         print(f"[time] {k} library call torch.sort {shapes[k]}: median {ms:.3f} ms", flush=True)
     del wins, wins5, runs
@@ -662,7 +707,8 @@ def main() -> int:
     }
     del folded, merged5
 
-    ours = ("interp_table_3d_kernel", "sort_rows_alt_kernel", "build_level_kernel", "fold_windows_kernel", "radix_tile_sort_kernel", "merge_pass_kernel")
+    ours = ("interp_table_3d_kernel", "sort_rows_warp_kernel", "sort_rows_alt_kernel", "build_levels_kernel", "fold_windows_kernel",
+            "radix_tile_sort_kernel", "merge_pass_kernel")
     _profile("one fused QDM step", qdm_step, ours)
     _profile(f"one fused windowed EQM step (doy+{HEAVY_WINDOW})", heavy_step, ours)
     _profile(f"one fused selection EQM step (doy+{HEAVY_WINDOW}, {SEL_SITES} sites)", sel_step, ours)

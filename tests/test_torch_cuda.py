@@ -111,6 +111,14 @@ def _equal(a, b):
     return bool((a == b).all())
 
 
+def _same_bits(a, b, run):
+    """Each run of ``run`` consecutive values of ``a`` holds the bit patterns
+    of the same run of ``b`` (a permutation: -0.0 and +0.0 kept apart)."""
+    bits = torch.int32 if a.dtype == torch.float32 else torch.int64
+    key = lambda t: torch.sort(t.contiguous().view(bits).reshape(-1, run), dim=-1).values  # noqa: E731
+    return bool((key(a) == key(b)).all())
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("B,Dp,m", [(1, 2, 1), (3, 8, 2), (4, 64, 16), (2, 400, 256), (1, 6, 2048)])
 def test_row_sort_matches_twin(cuda, dtype, B, Dp, m):
@@ -120,6 +128,59 @@ def test_row_sort_matches_twin(cuda, dtype, B, Dp, m):
     torch.cuda.synchronize()
     assert merge.launches["sort_rows_alternating"] == before + 1 and got.is_cuda
     assert _equal(got, merge.sort_rows_alternating_reference(x))
+
+
+@pytest.mark.parametrize("case", ["values", "ties", "all inf"])
+@pytest.mark.parametrize("m", [1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024, 2048, "limit"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_row_sort_at_every_lane_width(cuda, dtype, m, case):
+    """The warp sort at every values-a-lane (m <= 1024), the long-row variant
+    above it up to its limit (the longest power-of-two row within 48 KB:
+    8192 f32, 4096 f64); row counts that leave a block, and for m < 32 a
+    warp, part empty; the output a permutation of the input's bits."""
+    elem = torch.empty((), dtype=dtype).element_size()
+    m = 32 * 1024 // elem if m == "limit" else m
+    assert merge.row_sort_in_warp(m) is (m <= 1024)
+    B, Dp = {"values": (5, 34), "ties": (3, 6), "all inf": (2, 8)}[case]
+    if case == "values":
+        x = _slab(B, Dp, m, max(m - 3, 1), seed=m, dtype=dtype, device=cuda)
+    elif case == "ties":
+        x = _tie_slab(B, Dp, m, max(m // 2, 1), seed=m, dtype=dtype, device=cuda)
+    else:
+        x = torch.full((B, Dp, m), torch.inf, dtype=dtype, device=cuda)
+    before = merge.launches["sort_rows_alternating"]
+    got = merge.sort_rows_alternating(x)
+    torch.cuda.synchronize()
+    assert merge.launches["sort_rows_alternating"] == before + 1
+    assert _equal(got, merge.sort_rows_alternating_reference(x))
+    assert _same_bits(got, x, m)
+
+
+@pytest.mark.parametrize("dtype,levels,m", [
+    *((d, L, m) for d in (torch.float32, torch.float64) for L in (3, 4) for m in (1, 2, 8, 32, 256, 1024)),
+    (torch.float64, 4, 1024),   # 256 KB of buffers: merged in device memory (the 900-value fold's slab)
+    (torch.float64, 3, 2048),
+    (torch.float32, 4, 2048),
+    (torch.float32, 3, 3),      # rows of odd length (ordered by the twin)
+    (torch.float32, 1, 3),      # level spans off 16 bytes: the stores' head
+    (torch.float64, 2, 150),
+])
+def test_level_build_in_one_launch(cuda, dtype, levels, m):
+    """Both level build variants, chosen by shape, against the twin; every
+    level in one launch."""
+    elem = torch.empty((), dtype=dtype).element_size()
+    shared = merge.levels_in_shared(m, levels, elem, merge.fold_smem_limit(dtype, cuda))
+    assert shared is (2 * (m << levels) * elem < 256 * 1024)  # the cases here need at most 128 KB, or 256 KB
+    Dp = 3 << levels
+    for x in (_slab(2, Dp, m, max(m - 1, 1), seed=m + levels, dtype=dtype), _tie_slab(2, Dp, m, m, seed=m, dtype=dtype, device="cpu")):
+        ordered = merge.sort_rows_alternating_reference(x).to(cuda)
+        before = merge.launches["build_levels"]
+        got = merge.build_levels(ordered, levels)
+        torch.cuda.synchronize()
+        assert merge.launches["build_levels"] == before + 1
+        assert tuple(got.shape) == (2, levels, Dp, m)
+        assert _equal(got, merge.build_levels_reference(ordered, levels))
+        assert all(_same_bits(got[:, k], ordered, (2 << k) * m) for k in range(levels))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -176,7 +237,9 @@ def test_f64_window_31_of_900_values_runs(cuda, call):
     assert not merge.fold_scratch_in_shared(31 * ymax, 8, merge.fold_smem_limit(torch.float64, cuda))
     ordered = merge.sort_rows_alternating(_slab(2, 48, m, ymax, seed=31, dtype=torch.float64, device=cuda))
     if call == "fold":
+        assert not merge.levels_in_shared(m, L, 8, merge.fold_smem_limit(torch.float64, cuda))
         levels = merge.build_levels(ordered, L)
+        assert _equal(levels, merge.build_levels_reference(ordered, L))
         got = merge.fold_windows(ordered, levels, 31, G, ymax=ymax)
     else:
         got = merge.merged_window_rows(ordered, 31, G, ymax=ymax)

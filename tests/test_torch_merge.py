@@ -138,3 +138,30 @@ def test_wrappers_reject_what_the_kernels_do_not_take(call, err):
 ])
 def test_fold_variant_follows_shared_memory(n, elem, limit, shared):
     assert M.fold_scratch_in_shared(n, elem, limit) is shared
+
+
+@pytest.mark.parametrize("m,warp", [
+    (1, True),          # one value: a lane copies it
+    (16, True),         # several rows to a warp
+    (256, True),        # the heavy path's slab
+    (1024, True),       # 32 values a lane: 5-day windows of 150 years
+    (2048, False),      # longer rows: one block a row
+    (4096, False),
+    (8192, False),      # the longest power-of-two f32 row within 48 KB
+])
+def test_row_sort_variant_follows_row_length(m, warp):
+    assert M.row_sort_in_warp(m) is warp
+
+
+@pytest.mark.parametrize("m,levels,elem,limit,shared", [
+    (256, 4, 4, 232448, True),      # the heavy path: 2 x 16 x 256 x 4 bytes
+    (256, 4, 8, 232448, True),
+    (1024, 4, 4, 232448, True),     # 128 KB
+    (1024, 4, 8, 231600, False),    # f64, m = 1024: 256 KB, merged in device memory
+    (1024, 3, 8, 231600, True),
+    (3632, 3, 4, 232448, True),     # exactly two buffers
+    (3633, 3, 4, 232448, False),
+    (1, 3, 4, 232448, True),
+])
+def test_level_build_variant_follows_shared_memory(m, levels, elem, limit, shared):
+    assert M.levels_in_shared(m, levels, elem, limit) is shared

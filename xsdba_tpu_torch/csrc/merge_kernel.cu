@@ -3,9 +3,10 @@
 //
 // Replaces xsdba_tpu/ops/pallas/merge_kernel.py:
 //   sort_rows_alternating        (K3, _sort_rows_kernel / _bitonic_sort_lastaxis)
-//     -> sort_rows_alt_kernel
+//     -> sort_rows_warp_kernel (rows of up to 1024 values), else the long-row
+//        sort_rows_alt_kernel
 //   _merged_window_rows_shared_impl, _build_levels_kernel (K5)
-//     -> build_level_kernel, launched once per level
+//     -> build_levels_kernel, every level in one launch
 //   _merged_window_rows_shared_impl, _shared_fold_fused_kernel /
 //   _shared_fold_kernel / _fold_class_body (K6), and merged_window_rows (K4)
 //     -> fold_windows_kernel (K4 is the fold with every segment one base row)
@@ -23,17 +24,38 @@
 // merged ascending, +inf past the data.
 //
 // Bound.  The Pallas kernels are compare-exchange networks sized for VMEM
-// and the VPU's roll/iota lanes.  On Hopper the scarce thing is a block's
-// shared memory and its synchronisations.  The level build is a rank merge:
-// every value finds its output slot on its own, as its index in its run
-// plus its binary-search rank in the partner run, read from device memory
-// (the L1/L2 caches hold it: a run is at most 2^L·m values), and is written
-// once.  A merge of runs A then B (ties: A first) puts a in slot
-// i + #{b < a} and b in slot j + #{a <= b}, a permutation for any total
-// preorder, so ties and +-0.0 need no care beyond a fixed order of the runs.
-// It is bound by those dependent loads, not by bytes.  The row sort is a
-// bitonic network in shared memory, one block per row, bound by its
-// log2(m)^2/2 block-wide synchronisations.
+// and the VPU's roll/iota lanes.  On Hopper the scarce things are a block's
+// shared memory and its synchronisations, and all three kernels here are
+// bound by bytes at the heavy path's shapes.
+//
+// The row sort of a row of up to 1024 values is a bitonic network in one
+// warp's registers: each lane holds m/32 consecutive values (VPT, a template
+// argument, so every index into the lane's values is a constant), the
+// stages with a stride below VPT are compare-exchanges inside a lane and the
+// others __shfl_xor_sync exchanges; no shared memory, no __syncthreads().
+// Rows of m < 32 values take m lanes each, several rows to a warp.  Every
+// compare-exchange is ascending (each merge opens with a flip, not with a
+// direction computed per pair), and an odd row is stored reversed, so the
+// alternating layout costs nothing.  What bounds it is instruction issue
+// (36 stages at m = 256), not its bytes (0.125 ms at [512, 400, 256] f32),
+// so in float a compare-exchange is one min and one max instruction, and
+// the row index takes no 64-bit division.  Longer rows keep
+// the long-row variant, one block a row sorting in shared memory (bound by
+// its log2(m)^2/2 block-wide synchronisations; off every path the port runs
+// at production shapes).
+//
+// The level build takes one block per (batch row, aligned run of 2^L slab
+// rows) and builds all L levels of it in one launch: the 2^L rows are
+// staged (cp.async, odd rows read from their end), then level k merges
+// each aligned pair of 2^k·m-value runs by merge path (each thread a
+// contiguous range of outputs, placed by one co-rank search, ties to the
+// left run), ping-ponging between two shared buffers, and each level leaves
+// shared memory in 16-byte stores.  So the slab is read once and each level
+// written once, the bytes its bound counts.  When the two buffers do not fit
+// in shared memory (f64 with m = 1024), the block merges in device memory:
+// level 0 reads the slab, level k the level k - 1 the same block has just
+// written (through a plain pointer, never the read-only path; the block's
+// __syncthreads() makes its own writes visible to it).
 //
 // The window fold is bound by bytes: its [B, G, window·ymax] output (3.47 GB
 // at the heavy path's [512, 365, 4650] f32, 1.351 ms at 3.35 TB/s with its
@@ -59,10 +81,168 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMaxSegments = 64;
+// the warp row sort: warps a block, and the longest row (32 values a lane)
+constexpr int kSortWarps = 8;
+constexpr int kWarpSortMax = 32 * 32;
+
+template <typename T>
+struct Vec16;
+template <>
+struct Vec16<float> {
+  using type = float4;
+  static constexpr int n = 4;
+  __device__ static float4 make(const float* v) { return make_float4(v[0], v[1], v[2], v[3]); }
+  __device__ static void split(const float4& q, float* v) { v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w; }
+};
+template <>
+struct Vec16<double> {
+  using type = double2;
+  static constexpr int n = 2;
+  __device__ static double2 make(const double* v) { return make_double2(v[0], v[1]); }
+  __device__ static void split(const double2& q, double* v) { v[0] = q.x, v[1] = q.y; }
+};
 
 // ------------------------------------------------------------------ K3
-// One block per slab row: load the row, bitonic-sort it in shared memory,
-// ascending for even rows (row index within dp) and descending for odd ones.
+// The compare-exchange of the warp sort: a and b in ascending order, a
+// permutation for any values (compared with < only, so +-0.0 stay apart).
+template <typename T>
+__device__ __forceinline__ void order(T& a, T& b) {
+  const bool swap = b < a;
+  const T lo = swap ? b : a;
+  b = swap ? a : b;
+  a = lo;
+}
+
+// Of a pair split across two lanes, the value this lane keeps: the smaller
+// when it holds the pair's lower position.  Both lanes compare the same two
+// values the same way, so exactly one takes each.
+template <typename T>
+__device__ __forceinline__ T keep(T mine, T theirs, bool lower) {
+  return (lower ? theirs < mine : mine < theirs) ? theirs : mine;
+}
+
+// In float both are min/max instructions (FMNMX, the min or max picked by
+// a predicate): half the instructions of the compare and selects, and
+// Hopper's FMNMX orders -0.0 below +0.0, so the pair stays a permutation
+// (tests/test_torch_cuda.py holds the output's bit patterns to the
+// input's).  Double has no such instruction: fmin there costs more than
+// the compare and selects.
+template <>
+__device__ __forceinline__ void order<float>(float& a, float& b) {
+  const float lo = fminf(a, b);
+  b = fmaxf(a, b);
+  a = lo;
+}
+template <>
+__device__ __forceinline__ float keep<float>(float mine, float theirs, bool lower) {
+  return lower ? fminf(mine, theirs) : fmaxf(mine, theirs);
+}
+
+// The bitonic half-cleaner stages of strides J, J/2, ..., 1 inside a lane's
+// VPT values: pair (v, v + J) ascending.
+template <int J, int VPT, typename T>
+__device__ __forceinline__ void lane_half_cleaners(T (&r)[VPT]) {
+  if constexpr (J >= 1) {
+#pragma unroll
+    for (int v = 0; v < VPT; ++v)
+      if ((v & J) == 0) order(r[v], r[v | J]);
+    lane_half_cleaners<J / 2>(r);
+  }
+}
+
+// The merges of size K, 2K, ..., VPT inside a lane: each first pairs v with
+// its mirror v ^ (K - 1) (the flip that makes every merge ascending), then
+// half-cleans.  After it each lane's values are sorted.
+template <int K, int VPT, typename T>
+__device__ __forceinline__ void lane_sort(T (&r)[VPT]) {
+  if constexpr (K <= VPT) {
+#pragma unroll
+    for (int v = 0; v < VPT; ++v)
+      if ((v & (K / 2)) == 0) order(r[v], r[v ^ (K - 1)]);
+    lane_half_cleaners<K / 4>(r);
+    lane_sort<2 * K>(r);
+  }
+}
+
+// One warp per slab row of m = 32·VPT values (m / VPT = m lanes a row when
+// m < 32, VPT = 1, so 32 / m rows a warp), the row in registers: lane l
+// holds values [l·VPT, (l + 1)·VPT).  A bitonic network whose every
+// compare-exchange is ascending (each merge opens with a flip: value i
+// pairs with its mirror in the merged run, i ^ (k - 1)), so a direction is
+// never computed; an odd row (row index within dp) is stored reversed,
+// each lane's values into the mirror lane's slot.  Stages of stride below
+// VPT stay in a lane; the others are __shfl_xor_sync exchanges.  Every lane
+// of the warp runs every stage (the shuffles take the full mask); lanes
+// past the last row hold zeros and store nothing.
+template <typename T, int VPT>
+__global__ void __launch_bounds__(kSortWarps * 32)
+sort_rows_warp_kernel(const T* __restrict__ in, T* __restrict__ out, int rows, int m, int dp, bool aligned) {
+  // rows < 2^31 and lanes a power of two: no 64-bit division
+  const int lanes = m / VPT;
+  const int log_lanes = __ffs(lanes) - 1;
+  const int sub = threadIdx.x & (lanes - 1);
+  const long long row64 = static_cast<long long>(blockIdx.x) * (kSortWarps * 32 >> log_lanes) + (threadIdx.x >> log_lanes);
+  const bool valid = row64 < rows;
+  const int row = static_cast<int>(row64);
+  using V = Vec16<T>;
+  constexpr bool kVector = VPT % V::n == 0;
+  T r[VPT];
+  if (!valid) {
+#pragma unroll
+    for (int v = 0; v < VPT; ++v) r[v] = T(0);
+  } else if (kVector && aligned) {
+    const auto* q = reinterpret_cast<const typename V::type*>(in + static_cast<long long>(row) * m + sub * VPT);
+#pragma unroll
+    for (int c = 0; c < VPT / V::n; ++c) V::split(q[c], r + c * V::n);
+  } else {
+#pragma unroll
+    for (int v = 0; v < VPT; ++v) r[v] = in[static_cast<long long>(row) * m + sub * VPT + v];
+  }
+
+  lane_sort<2>(r);
+  for (int k = 2 * VPT; k <= m; k <<= 1) {
+    // the flip: lane sub ^ (k / VPT - 1) holds the mirrors, in reverse order
+    const int mirror = k / VPT - 1;
+    const bool lower = (sub & (k / (2 * VPT))) == 0;
+    if constexpr (VPT == 1) {
+      r[0] = keep(r[0], __shfl_xor_sync(0xffffffffu, r[0], mirror), lower);
+    } else {
+#pragma unroll
+      for (int v = 0; v < VPT / 2; ++v) {
+        const T theirs_w = __shfl_xor_sync(0xffffffffu, r[VPT - 1 - v], mirror);
+        const T theirs_v = __shfl_xor_sync(0xffffffffu, r[v], mirror);
+        r[v] = keep(r[v], theirs_w, lower);
+        r[VPT - 1 - v] = keep(r[VPT - 1 - v], theirs_v, lower);
+      }
+    }
+    // half-cleaners across lanes: lane sub ^ d holds the same positions
+    for (int d = k / (4 * VPT); d >= 1; d >>= 1) {
+      const bool low = (sub & d) == 0;
+#pragma unroll
+      for (int v = 0; v < VPT; ++v) r[v] = keep(r[v], __shfl_xor_sync(0xffffffffu, r[v], d), low);
+    }
+    lane_half_cleaners<VPT / 2>(r);
+  }
+
+  if (!valid) return;
+  const bool desc = (row % dp) & 1;
+  T w[VPT];
+#pragma unroll
+  for (int v = 0; v < VPT; ++v) w[v] = desc ? r[VPT - 1 - v] : r[v];
+  T* dst = out + static_cast<long long>(row) * m + (desc ? lanes - 1 - sub : sub) * VPT;
+  if (kVector && aligned) {
+    auto* q = reinterpret_cast<typename V::type*>(dst);
+#pragma unroll
+    for (int c = 0; c < VPT / V::n; ++c) q[c] = V::make(w + c * V::n);
+  } else {
+#pragma unroll
+    for (int v = 0; v < VPT; ++v) dst[v] = w[v];
+  }
+}
+
+// The long-row variant (rows of more than kWarpSortMax values): one block
+// per slab row, bitonic-sorted in shared memory, ascending for even rows
+// (row index within dp) and descending for odd ones.
 template <typename T>
 __global__ void sort_rows_alt_kernel(const T* __restrict__ in, T* __restrict__ out, int m, int dp) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -100,61 +280,22 @@ __device__ __forceinline__ T at(const T* run, int i, int n, bool rev) {
   return rev ? run[n - 1 - i] : run[i];
 }
 
-// Number of values of the run below x (or at most x when inclusive).
+// A run of n values stored descending, read ascending.
 template <typename T>
-__device__ __forceinline__ int rank_in(const T* run, int n, bool rev, T x, bool inclusive) {
-  int lo = 0;
-  int hi = n;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    const T v = at(run, mid, n, rev);
-    if (inclusive ? (v <= x) : (v < x)) {
-      lo = mid + 1;
-    } else {
-      hi = mid;
-    }
-  }
-  return lo;
-}
+struct Reversed {
+  const T* p;
+  int n;
+  __device__ __forceinline__ T operator[](int i) const { return p[n - 1 - i]; }
+};
 
-// ------------------------------------------------------------------ K5
-// One level: every aligned pair of h-value runs of src (per batch row,
-// stride src_bs) becomes one ascending 2h-value run of dst (stride dst_bs).
-// At the base level (src = the slab, h = m) the right run of each pair is
-// an odd row, stored descending.  One thread per value.
-template <typename T>
-__global__ void build_level_kernel(const T* __restrict__ src, long long src_bs, T* __restrict__ dst,
-                                   long long dst_bs, long long per_batch, int h, bool base,
-                                   long long total) {
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long e = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; e < total; e += stride) {
-    const long long b = e / per_batch;
-    const long long w = e - b * per_batch;
-    const long long pair = w / (2 * h);
-    const int pos = static_cast<int>(w - pair * 2 * h);
-    const T* left = src + b * src_bs + pair * 2 * h;
-    const T* right = left + h;
-    T x;
-    int slot;
-    if (pos < h) {
-      x = left[pos];
-      slot = pos + rank_in(right, h, base, x, false);
-    } else {
-      x = at(right, pos - h, h, base);
-      slot = pos - h + rank_in(left, h, false, x, true);
-    }
-    dst[b * dst_bs + pair * 2 * h + slot] = x;
-  }
-}
-
-// ------------------------------------------------------------------ K6 / K4
 // Merge path of one pair of ascending runs a (na values) and b (nb values),
 // ties a first: writes outputs [k, k + count) of merge(a, b) to out.  One
 // co-rank search finds how many of the first k outputs come from a; then
 // one comparison and one load per output, the two heads held in registers,
-// with no branch on the data (the lanes of a warp never diverge).
-template <typename T>
-__device__ __forceinline__ void merge_range(const T* a, int na, const T* b, int nb, int k, int count, T* out) {
+// with no branch on the data (the lanes of a warp never diverge).  a and b
+// are pointers, or Reversed runs.
+template <typename A, typename B, typename T>
+__device__ __forceinline__ void merge_range(A a, int na, B b, int nb, int k, int count, T* out) {
   int lo = k > nb ? k - nb : 0;
   int hi = k < na ? k : na;
   while (lo < hi) {
@@ -181,20 +322,106 @@ __device__ __forceinline__ void merge_range(const T* a, int na, const T* b, int 
   }
 }
 
+// Stores the block's n values of s (shared memory) to run in device memory:
+// 16-byte stores once run is aligned, a short head before and a tail after.
 template <typename T>
-struct Vec16;
-template <>
-struct Vec16<float> {
-  using type = float4;
-  static constexpr int n = 4;
-  __device__ static float4 make(const float* v) { return make_float4(v[0], v[1], v[2], v[3]); }
-};
-template <>
-struct Vec16<double> {
-  using type = double2;
-  static constexpr int n = 2;
-  __device__ static double2 make(const double* v) { return make_double2(v[0], v[1]); }
-};
+__device__ __forceinline__ void store_run(T* run, const T* s, int n) {
+  using V = Vec16<T>;
+  const int mis = static_cast<int>((reinterpret_cast<unsigned long long>(run) / sizeof(T)) % V::n);
+  const int head = min(n, (V::n - mis) % V::n);
+  if (static_cast<int>(threadIdx.x) < head) run[threadIdx.x] = s[threadIdx.x];
+  const int n_vec = (n - head) / V::n;
+  auto* vrun = reinterpret_cast<typename V::type*>(run + head);
+  if (reinterpret_cast<unsigned long long>(s + head) % 16 == 0) {
+    const auto* vs = reinterpret_cast<const typename V::type*>(s + head);
+    for (int v = threadIdx.x; v < n_vec; v += blockDim.x) vrun[v] = vs[v];
+  } else {
+    for (int v = threadIdx.x; v < n_vec; v += blockDim.x) vrun[v] = V::make(s + head + v * V::n);
+  }
+  for (int i = head + n_vec * V::n + threadIdx.x; i < n; i += blockDim.x) run[i] = s[i];
+}
+
+// ------------------------------------------------------------------ K5
+// Outputs [d, d + count) of one level of a block's run: every aligned pair
+// of h-value runs of src merged into one ascending 2h-value run of dst.
+// When kReversedRight (the slab itself, h = m), the right run of each pair
+// is an odd slab row, stored descending.
+template <bool kReversedRight, typename T>
+__device__ __forceinline__ void merge_pairs(const T* src, int h, int d, int count, T* dst) {
+  while (count > 0) {
+    const int pair = d / (2 * h);
+    const int k = d - pair * 2 * h;
+    const int c = min(count, 2 * h - k);
+    const T* a = src + static_cast<long long>(pair) * 2 * h;
+    if constexpr (kReversedRight) {
+      merge_range(a, h, Reversed<T>{a + h, h}, h, k, c, dst + d);
+    } else {
+      merge_range(a, h, a + h, h, k, c, dst + d);
+    }
+    d += c;
+    count -= c;
+  }
+}
+
+// One block per (batch row b, aligned run of 2^L slab rows): level k of
+// those rows, for every k < L, is each aligned pair of 2^k-row runs merged
+// (level k - 1's runs; at k = 0 the slab rows, odd ones read from the end).
+// Each thread merges a contiguous range of a level's outputs, odd in length
+// (distinct shared-memory banks at the start).  kShared: the rows are
+// staged in shared memory and the levels ping-pong between two shared
+// buffers, each level stored in 16-byte stores once merged.  Else every
+// merge runs in device memory, level k reading the level k - 1 the block
+// has just written: levels is not __restrict__ and never read through the
+// read-only path, and __syncthreads() makes those writes visible.
+template <typename T, bool kShared>
+__global__ void __launch_bounds__(kThreads)
+build_levels_kernel(const T* __restrict__ slab, T* levels, int dp, int m, int n_levels) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int runs = dp >> n_levels;
+  const long long b = blockIdx.x / runs;
+  const int g = static_cast<int>(blockIdx.x - b * runs);
+  const int total = m << n_levels;
+  const T* rows = slab + (b * dp + (static_cast<long long>(g) << n_levels)) * m;
+  const long long level_stride = static_cast<long long>(dp) * m;
+  T* const lv = levels + b * n_levels * level_stride + (static_cast<long long>(g) << n_levels) * m;
+  const int step = ((total + blockDim.x - 1) / blockDim.x) | 1;
+
+  if constexpr (kShared) {
+    T* const buf0 = reinterpret_cast<T*>(smem_raw);
+    T* const buf1 = buf0 + total;
+    for (int j = threadIdx.x; j < total; j += blockDim.x) {
+      const int r = j / m;
+      const int c = j - r * m;
+      __pipeline_memcpy_async(buf0 + j, rows + r * m + ((r & 1) ? m - 1 - c : c), sizeof(T));
+    }
+    __pipeline_commit();
+    __pipeline_wait_prior(0);
+    __syncthreads();
+    for (int k = 0; k < n_levels; ++k) {
+      const T* src = (k & 1) ? buf1 : buf0;
+      T* dst = (k & 1) ? buf0 : buf1;
+      for (int d = threadIdx.x * step; d < total; d += blockDim.x * step)
+        merge_pairs<false>(src, m << k, d, min(step, total - d), dst);
+      __syncthreads();
+      // the next level reads dst and writes the other buffer: no sync here
+      store_run(lv + k * level_stride, dst, total);
+    }
+  } else {
+    for (int k = 0; k < n_levels; ++k) {
+      T* dst = lv + k * level_stride;
+      for (int d = threadIdx.x * step; d < total; d += blockDim.x * step) {
+        if (k == 0) {
+          merge_pairs<true>(rows, m, d, min(step, total - d), dst);
+        } else {
+          merge_pairs<false>(static_cast<const T*>(dst - level_stride), m << k, d, min(step, total - d), dst);
+        }
+      }
+      __syncthreads();
+    }
+  }
+}
+
+// ------------------------------------------------------------------ K6 / K4
 
 // One block per (batch row, group g): the window rows [g, g + window) split
 // into aligned dyadic segments of at most 2^n_levels rows (the TPU kernel's
@@ -306,24 +533,33 @@ fold_windows_kernel(const T* __restrict__ slab, const T* __restrict__ levels, T*
     __syncthreads();
   }
 
-  // the merged row is in s: store it with 16-byte stores once row is aligned
-  using V = Vec16<T>;
-  const int mis = static_cast<int>((reinterpret_cast<unsigned long long>(row) / sizeof(T)) % V::n);
-  const int head = min(total, (V::n - mis) % V::n);
-  if (static_cast<int>(threadIdx.x) < head) row[threadIdx.x] = s[threadIdx.x];
-  const int n_vec = (total - head) / V::n;
-  auto* vrow = reinterpret_cast<typename V::type*>(row + head);
-  if (head == 0) {
-    const auto* vs = reinterpret_cast<const typename V::type*>(s);
-    for (int v = threadIdx.x; v < n_vec; v += blockDim.x) vrow[v] = vs[v];
-  } else {
-    for (int v = threadIdx.x; v < n_vec; v += blockDim.x) vrow[v] = V::make(s + head + v * V::n);
-  }
-  for (int i = head + n_vec * V::n + threadIdx.x; i < total; i += blockDim.x) row[i] = s[i];
+  // the merged row is in s
+  store_run(row, s, total);
+}
+
+template <typename T, int VPT>
+int launch_warp_sort(const void* in, void* out, long long rows, int m, int dp, cudaStream_t stream) {
+  const long long threads = rows * (m / VPT);
+  const long long blocks = (threads + kSortWarps * 32 - 1) / (kSortWarps * 32);
+  const bool aligned = ((reinterpret_cast<unsigned long long>(in) | reinterpret_cast<unsigned long long>(out)) % 16) == 0;
+  sort_rows_warp_kernel<T, VPT><<<static_cast<unsigned>(blocks), kSortWarps * 32, 0, stream>>>(
+      static_cast<const T*>(in), static_cast<T*>(out), rows, m, dp, aligned);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int sort_rows_alt(const void* in, void* out, long long rows, int m, int dp, cudaStream_t stream) {
+int sort_rows_alt(const void* in, void* out, long long rows, int m, int dp, bool in_warp, cudaStream_t stream) {
+  if (in_warp) {
+    switch (m <= 32 ? 1 : m / 32) {
+      case 1: return launch_warp_sort<T, 1>(in, out, rows, m, dp, stream);
+      case 2: return launch_warp_sort<T, 2>(in, out, rows, m, dp, stream);
+      case 4: return launch_warp_sort<T, 4>(in, out, rows, m, dp, stream);
+      case 8: return launch_warp_sort<T, 8>(in, out, rows, m, dp, stream);
+      case 16: return launch_warp_sort<T, 16>(in, out, rows, m, dp, stream);
+      case 32: return launch_warp_sort<T, 32>(in, out, rows, m, dp, stream);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
   const int threads = std::min(std::max(m / 2, 32), 512);
   const size_t smem = static_cast<size_t>(m) * sizeof(T);
   sort_rows_alt_kernel<T><<<static_cast<unsigned>(rows), threads, smem, stream>>>(
@@ -331,26 +567,31 @@ int sort_rows_alt(const void* in, void* out, long long rows, int m, int dp, cuda
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int build_levels(const void* slab, void* levels, int batch, int dp, int m, int n_levels, cudaStream_t stream) {
-  const long long per_batch = static_cast<long long>(dp) * m;
-  const long long total = per_batch * batch;
-  const long long blocks = std::min((total + kThreads - 1) / kThreads, 1LL << 30);
-  for (int k = 0; k < n_levels; ++k) {
-    const T* src = k == 0 ? static_cast<const T*>(slab) : static_cast<const T*>(levels) + (k - 1) * per_batch;
-    const long long src_bs = k == 0 ? per_batch : n_levels * per_batch;
-    T* dst = static_cast<T*>(levels) + k * per_batch;
-    build_level_kernel<T><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
-        src, src_bs, dst, n_levels * per_batch, per_batch, m << k, k == 0, total);
-    const cudaError_t err = cudaGetLastError();
+// Threads of a merging block (fold or level build): enough for its n
+// values at about 9 outputs a thread, at most kThreads.
+inline int fold_threads(int total) { return std::min(kThreads, ((total + 8) / 9 + 31) / 32 * 32); }
+
+template <typename T, bool kShared>
+int launch_levels(const void* slab, void* levels, int batch, int dp, int m, int n_levels, cudaStream_t stream) {
+  const int total = m << n_levels;
+  const size_t smem = kShared ? 2 * static_cast<size_t>(total) * sizeof(T) : 0;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(build_levels_kernel<T, kShared>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  return 0;
+  const long long blocks = static_cast<long long>(batch) * (dp >> n_levels);
+  build_levels_kernel<T, kShared><<<static_cast<unsigned>(blocks), fold_threads(total), smem, stream>>>(
+      static_cast<const T*>(slab), static_cast<T*>(levels), dp, m, n_levels);
+  return static_cast<int>(cudaGetLastError());
 }
 
-// Threads of a fold block: enough for the row at about 9 outputs a thread
-// in the last step, at most kThreads.
-inline int fold_threads(int total) { return std::min(kThreads, ((total + 8) / 9 + 31) / 32 * 32); }
+template <typename T>
+int build_levels(const void* slab, void* levels, int batch, int dp, int m, int n_levels, bool in_shared,
+                 cudaStream_t stream) {
+  return in_shared ? launch_levels<T, true>(slab, levels, batch, dp, m, n_levels, stream)
+                   : launch_levels<T, false>(slab, levels, batch, dp, m, n_levels, stream);
+}
 
 template <typename T, bool kSharedScratch>
 int launch_fold(const void* slab, const void* levels, void* out, int batch, int dp, int m, int n_levels, int window,
@@ -386,33 +627,37 @@ int fold_windows(const void* slab, const void* levels, void* out, int batch, int
 // (0 on success).  The caller checks shapes; these check only what would
 // make a launch invalid.
 
-// rows = B * dp slab rows of m values (m a power of two, m * elem_size <= 48 KB).
+// rows = B * dp slab rows of m values (m a power of two, m * elem_size <= 48 KB);
+// in_warp: the warp sort (m <= 1024), else the long-row variant.
 extern "C" int xsdba_sort_rows_alt(const void* in, void* out, long long rows, int m, int dp, int elem_size,
-                                   int device, void* stream) {
+                                   int in_warp, int device, void* stream) {
   if (rows < 0 || m < 1 || (m & (m - 1)) != 0 || dp < 1 || static_cast<long long>(m) * elem_size > 48 * 1024 ||
-      rows >= (1LL << 31))
+      rows >= (1LL << 31) || (in_warp && m > kWarpSortMax))
     return static_cast<int>(cudaErrorInvalidValue);
   if (rows == 0) return 0;
   const xsdba::DeviceGuard guard(device);
   if (guard.status() != cudaSuccess) return static_cast<int>(guard.status());
   const auto s = static_cast<cudaStream_t>(stream);
-  if (elem_size == 4) return sort_rows_alt<float>(in, out, rows, m, dp, s);
-  if (elem_size == 8) return sort_rows_alt<double>(in, out, rows, m, dp, s);
+  if (elem_size == 4) return sort_rows_alt<float>(in, out, rows, m, dp, in_warp, s);
+  if (elem_size == 8) return sort_rows_alt<double>(in, out, rows, m, dp, in_warp, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // slab [batch, dp, m] (alternating rows) -> levels [batch, n_levels, dp, m];
-// dp a multiple of 2^n_levels.
+// dp a multiple of 2^n_levels.  in_shared: the merges in shared memory
+// (2 * m * 2^n_levels * elem_size bytes a block), else in device memory.
 extern "C" int xsdba_build_levels(const void* slab, void* levels, int batch, int dp, int m, int n_levels,
-                                  int elem_size, int device, void* stream) {
-  if (batch < 0 || dp < 1 || m < 1 || n_levels < 1 || dp % (1 << n_levels) != 0)
+                                  int elem_size, int in_shared, int device, void* stream) {
+  if (batch < 0 || dp < 1 || m < 1 || n_levels < 1 || n_levels > 30 || dp % (1 << n_levels) != 0 ||
+      (static_cast<long long>(m) << n_levels) >= (1LL << 30) ||
+      static_cast<long long>(batch) * (dp >> n_levels) >= (1LL << 31))
     return static_cast<int>(cudaErrorInvalidValue);
   if (batch == 0) return 0;
   const xsdba::DeviceGuard guard(device);
   if (guard.status() != cudaSuccess) return static_cast<int>(guard.status());
   const auto s = static_cast<cudaStream_t>(stream);
-  if (elem_size == 4) return build_levels<float>(slab, levels, batch, dp, m, n_levels, s);
-  if (elem_size == 8) return build_levels<double>(slab, levels, batch, dp, m, n_levels, s);
+  if (elem_size == 4) return build_levels<float>(slab, levels, batch, dp, m, n_levels, in_shared, s);
+  if (elem_size == 8) return build_levels<double>(slab, levels, batch, dp, m, n_levels, in_shared, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -441,7 +686,8 @@ extern "C" int xsdba_fold_windows(const void* slab, const void* levels, void* ou
 
 // Bytes of dynamic shared memory a fold block may take on `device` (the
 // device's opt-in limit less the kernel's static shared memory), or a
-// negative cudaError_t.
+// negative cudaError_t.  The level build, which declares no static shared
+// memory, takes the same limit.
 extern "C" long long xsdba_fold_smem_limit(int elem_size, int device) {
   const xsdba::DeviceGuard guard(device);
   if (guard.status() != cudaSuccess) return -static_cast<long long>(guard.status());

@@ -19,8 +19,15 @@ Merged rows: [B, G, window * ymax], ascending, +inf past the data.
 Every kernel has a plain PyTorch twin beside its wrapper.  A wrapper runs
 the twin on a CPU tensor and launches its CUDA kernel
 (``csrc/merge_kernel.cu``) on a CUDA tensor, or raises; nothing on a CUDA
-tensor goes to a twin.  ``launches`` counts the kernel launches of each
-wrapper (the level build launches once per level; reset by assignment).
+tensor goes to a twin.  Three kernels have two variants each, chosen by the
+wrapper from the shape alone: the row sort sorts a row of up to 1024 values
+in one warp's registers (:func:`row_sort_in_warp`), a longer one in a
+block's shared memory; the level build merges in shared memory when its two
+buffers fit (:func:`levels_in_shared`), else in device memory; and the fold
+keeps its second buffer in shared memory when it fits
+(:func:`fold_scratch_in_shared`), else in its output row.
+``launches`` counts the kernel launches of each wrapper (one a call each,
+the level build included: every level in one launch; reset by assignment).
 """
 
 from __future__ import annotations
@@ -43,9 +50,11 @@ __all__ = [
     "fold_windows",
     "fold_windows_reference",
     "launches",
+    "levels_in_shared",
     "merged_window_rows",
     "merged_window_rows_reference",
     "n_levels",
+    "row_sort_in_warp",
     "sort_rows_alternating",
     "sort_rows_alternating_reference",
 ]
@@ -55,12 +64,14 @@ launches = {"sort_rows_alternating": 0, "build_levels": 0, "fold_windows": 0, "m
 
 #: most dyadic segments one window may split into (``kMaxSegments`` in the source)
 MAX_SEGMENTS = 64
-#: the row sort holds one row in (static-limit) shared memory
+#: the long-row sort holds one row in (static-limit) shared memory
 _SORT_MAX_BYTES = 48 * 1024
+#: the warp row sort: at most 32 values a lane (``kWarpSortMax`` in the source)
+_WARP_SORT_MAX = 32 * 32
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
-    "xsdba_sort_rows_alt": ([_P, _P, _LL, _I, _I, _I, _I, _P], _I),
-    "xsdba_build_levels": ([_P, _P, _I, _I, _I, _I, _I, _I, _P], _I),
+    "xsdba_sort_rows_alt": ([_P, _P, _LL, _I, _I, _I, _I, _I, _P], _I),
+    "xsdba_build_levels": ([_P, _P, _I, _I, _I, _I, _I, _I, _I, _P], _I),
     "xsdba_fold_windows": ([_P, _P, _P] + [_I] * 10 + [_P], _I),
     "xsdba_fold_smem_limit": ([_I, _I], _LL),
 }
@@ -188,9 +199,28 @@ def _raise_on(rc: int, name: str):
         raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
 
 
+def row_sort_in_warp(m: int) -> bool:
+    """Which row sort variant a row of ``m`` values takes: True for the warp
+    sort (the row in one warp's registers, at most 32 values a lane, f32 or
+    f64, without spilling: every slab the port builds, up to m = 1024),
+    False for the long-row variant (one block a row, the row in shared
+    memory)."""
+    return m <= _WARP_SORT_MAX
+
+
+def levels_in_shared(m: int, n_levels: int, elem_size: int, limit: int) -> bool:
+    """Which level build variant a block of 2^``n_levels`` slab rows of
+    ``m`` values takes: True when its two merge buffers fit in the ``limit``
+    bytes of shared memory a block may take (the heavy path: 2 x 16 x 256 x 4
+    bytes), False when they do not (f64, m = 1024: 256 KB) and the block
+    merges in device memory instead."""
+    return 2 * (m << n_levels) * elem_size <= limit
+
+
 def sort_rows_alternating(x):
     """Row sort (K3): [B, Dp, m] (m a power of two, +inf pads, no NaN) ->
-    each row sorted, ascending on even rows and descending on odd rows."""
+    each row sorted, ascending on even rows and descending on odd rows.
+    Rows of up to 1024 values sort in a warp (:func:`row_sort_in_warp`)."""
     _check_slab(x)
     B, Dp, m = x.shape
     if m & (m - 1) or Dp % 2:
@@ -202,7 +232,10 @@ def sort_rows_alternating(x):
     out = torch.empty_like(x)
     if out.numel() == 0:
         return out
-    rc = _library().xsdba_sort_rows_alt(x.data_ptr(), out.data_ptr(), B * Dp, m, Dp, x.element_size(), x.device.index, _stream(x))
+    rc = _library().xsdba_sort_rows_alt(
+        x.data_ptr(), out.data_ptr(), B * Dp, m, Dp, x.element_size(),
+        int(row_sort_in_warp(m)), x.device.index, _stream(x),
+    )
     _raise_on(rc, "sort_rows_alternating")
     launches["sort_rows_alternating"] += 1
     return out
@@ -211,7 +244,8 @@ def sort_rows_alternating(x):
 def build_levels(s, levels: int):
     """Level build (K5): alternating-sorted slab [B, Dp, m] -> [B, L, Dp, m],
     level k every aligned 2^(k+1)-row run merged ascending (Dp a multiple of
-    2^L)."""
+    2^L).  One launch builds every level, in shared memory when the block's
+    buffers fit (:func:`levels_in_shared`), else in device memory."""
     _check_slab(s)
     B, Dp, m = s.shape
     if levels < 1 or Dp % (1 << levels):
@@ -221,9 +255,12 @@ def build_levels(s, levels: int):
     out = torch.empty((B, levels, Dp, m), dtype=s.dtype, device=s.device)
     if out.numel() == 0:
         return out
-    rc = _library().xsdba_build_levels(s.data_ptr(), out.data_ptr(), B, Dp, m, levels, s.element_size(), s.device.index, _stream(s))
+    shared = levels_in_shared(m, levels, s.element_size(), fold_smem_limit(s.dtype, s.device))
+    rc = _library().xsdba_build_levels(
+        s.data_ptr(), out.data_ptr(), B, Dp, m, levels, s.element_size(), int(shared), s.device.index, _stream(s)
+    )
     _raise_on(rc, "build_levels")
-    launches["build_levels"] += levels  # one launch per level
+    launches["build_levels"] += 1
     return out
 
 
@@ -250,7 +287,8 @@ def fold_scratch_in_shared(n_values: int, elem_size: int, limit: int) -> bool:
 
 
 def fold_smem_limit(dtype, device) -> int:
-    """Bytes of shared memory a fold block may take on the CUDA ``device``."""
+    """Bytes of shared memory a fold block (or a level build block) may take
+    on the CUDA ``device``."""
     device = torch.device(device)
     return _fold_smem_limit(torch.empty((), dtype=dtype).element_size(), 0 if device.index is None else device.index)
 
