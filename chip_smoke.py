@@ -9,9 +9,20 @@ Phases, each reported on lines of its own:
 2. build: compiles every CUDA source under ``xsdba_tpu_torch/csrc/`` (one
    ``nvcc`` each, all at once);
 3. kernel: each kernel against its plain PyTorch twin, on the card, on the
-   inputs its path gives it: the lookup (K1) at the headline partition
-   shape and the 2-D lookup (K2) at the headline [512, 54750] rows, each
-   with every edge case it has, bit for bit; the row sort (K3), the level
+   inputs its path gives it: the lookup (K1) at the windowed adjust's short
+   partition rows ([256, 367, 150], a warp a row) and at the monthly
+   partition shape, the 2-D lookup (K2) at the headline [512, 54750] rows,
+   both at one value a row, lengths on and off a multiple of 4 and around
+   the short-row limit, nq = 1, 2, 50, 64 and values that start off 16
+   bytes, each with every edge case it has (tables of 0, 1 and 2 nodes,
+   tied nodes, values of +-inf, NaN and exactly on nodes), bit for bit; the
+   bracketed lookup at [512, 54750] with the monthly brackets and at a
+   small odd shape with random brackets (w = 0 and 1, g0 == g1); the fused
+   multiply-add against its emulation in f32 and f64 (same shape,
+   broadcast, a transposed operand; +-0, +-inf, NaN, subnormals, products
+   that cancel against c) and at the shapes its paths give it (the heavy
+   extraction's lerp on the operands phase 6 times, the QDM step's virtual
+   index and lerp, the selection step's lerp on slices); the row sort (K3), the level
    build (K5) and the window fold (K6) on the heavy path's slab of 512 rows
    (ref and hist of 256 sites), K3 also on its rows cut to 32 values and
    padded with +inf to 1024 (the warp sort at 1 and 32 values a lane) and
@@ -27,14 +38,15 @@ Phases, each reported on lines of its own:
    the output row) at f64, window 31 and 900 values a row (m = 1024);
 4. main path: ``QuantileDeltaMapping.train(...).adjust(...)`` on CUDA
    tensors of 512 sites x 150 noleap years, f32, ``nquantiles=50``,
-   monthly groups; finite, through K1, and equal to the port's CPU path on
+   monthly groups; finite, its adjust one launch of the bracketed lookup
+   and none of K1, and equal to the port's CPU path (both blend fused) on
    the first 8 sites at rtol = atol = 2e-6; then (4b) ``group="time"`` on
    the same data, through K2;
 5. heavy: ``EmpiricalQuantileMapping.train(group="time.dayofyear",
    window=31).adjust(interp="linear")`` on CUDA tensors of 256 sites x 150
    noleap years (``bench.py``'s heavy data: seed 1, ref ~ N(10, 2), hist ~
    N(12, 3), sim ~ N(13, 3), f32, ``nquantiles=50``); finite, through K3,
-   K5, K6 and K1, and equal on the first 4 sites to the port's CPU merge
+   K5, K6, K1 and the fma kernel, and equal on the first 4 sites to the port's CPU merge
    path at rtol = atol = 2e-6, and in float64 to the re-sort oracle
    (``eqm_train_from_raw`` + ``qm_adjust_core``) at 1e-12; then the same at
    window 5, through K3 and K4;
@@ -53,7 +65,9 @@ Phases, each reported on lines of its own:
    and against one PyTorch call computing the same function where there is
    one (timed the same way; K7's ``torch.sort`` sorts the keys alone,
    without the payload; K5's sorts the top level's runs, one of its four
-   levels), K3's long-row variant at m = 2048, the peak device memory of
+   levels; fma's is ``torch.addcmul``), K1 also on the monthly
+   partition's long rows, fma also on same-shape operands and in float64,
+   K3's long-row variant at m = 2048, the peak device memory of
    the heavy and selection steps and of the heavy public call, and for each
    fused step the five kernels that take the most device time plus the
    port's own kernels (``torch.profiler``).
@@ -63,9 +77,11 @@ just after; launches made to compare a kernel with its twin do not count.
 Each merge wrapper counts one launch a call (the level build builds every
 level in one launch).
 The line before the last is one JSON object describing the kernels (K1's
-launches are the QDM path's, K2's the ``group="time"`` path's, K3, K5 and
-K6's the heavy path's, K4's the window-5 path's, K7's the selection
-path's), each with its least possible time on an H100 (``bound_ms``: the
+launches and shape are the heavy path's windowed adjust, K2's the
+``group="time"`` path's, K3, K5 and K6's the heavy path's, K4's the
+window-5 path's, K7's the selection path's, the bracketed lookup's the QDM
+path's, fma's the heavy path's, at its extraction's broadcast lerp), each
+with its least possible time on an H100 (``bound_ms``: the
 larger of its bytes over 3.35 TB/s and its operations over 67 TFLOP/s); the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device the
 script exits with code 2 and prints no result.
@@ -87,7 +103,7 @@ from xsdba_tpu_torch.models._algos import eqm_train_adjust_windowed, eqm_train_f
 from xsdba_tpu_torch.models._wrap import device_brackets
 from xsdba_tpu_torch.ops import merge, sort
 from xsdba_tpu_torch.ops.correction import equally_spaced_nodes
-from xsdba_tpu_torch.ops.cuda import _build, interp_kernel
+from xsdba_tpu_torch.ops.cuda import _build, fma_kernel, interp_kernel
 from xsdba_tpu_torch.ops.interp import _compact_nan_pairs
 from xsdba_tpu_torch.ops.quantile import merge_slab
 from xsdba_tpu_torch.ops.selquant import plan_labels
@@ -116,33 +132,82 @@ KERNELS = {
     "K5": dict(name="build_levels", route="cuda", source=_SRC + "merge_kernel.cu", replaces=_PALLAS + "merge_kernel.py:477"),
     "K6": dict(name="fold_windows", route="cuda", source=_SRC + "merge_kernel.cu", replaces=_PALLAS + "merge_kernel.py:636"),
     "K7": dict(name="sort_rows_with_payload", route="cuda", source=_SRC + "sort_kernel.cu", replaces=_PALLAS + "sort_kernel.py:134"),
+    # not TPU kernels: the partition route of the reference's grouped lookup in
+    # one launch, and the fused multiply-add XLA's contraction gives the reference
+    "bracketed": dict(name="interp_bracketed", route="cuda", source=_SRC + "interp_kernel.cu", replaces="xsdba_tpu/ops/interp.py:409"),
+    "fma": dict(name="fma", route="cuda", source=_SRC + "fma_kernel.cu",
+                replaces="xsdba_tpu/ops/quantile.py:35 (x * y + z as XLA contracts it in the compiled programs)"),
 }
 
 
-def lookup_inputs(B, Gp, Lp, nq, seed=0, device="cpu"):
+def lookup_inputs(B, Gp, Lp, nq, seed=0, device="cpu", extra=False):
     """Compacted f32 lookup tables [B, Gp, nq] and values [B, Gp, Lp] with
-    every edge case of the lookup: NaN pairs inside tables, whole-NaN rows
+    the lookup's edge cases: NaN pairs inside tables, whole-NaN rows
     (nvalid = 0), single-node rows with values exactly on the node (and a
     NaN y in the pad slot), NaN values, and values below and above each
-    table.  Returns (v, xs, ys, nvalid int32) on ``device``."""
+    table.  ``extra`` adds what a binary search must get right, on the same
+    draws: two-node rows, tied nodes, values of +-inf and values exactly on
+    nodes and on the +inf pads (off by default: the timed inputs stay
+    continuous data with 1 % missing, as the paths give it).  Returns
+    (v, xs, ys, nvalid int32) on ``device``."""
     rng = np.random.default_rng(seed)
     R = B * Gp
     xq = np.sort(rng.normal(0, 1, (R, nq)), axis=-1)
     yq = rng.normal(0, 1, (R, nq))
     rows = rng.permutation(R)
     k = max(R // 50, 1)
-    nan_pair, empty, single = rows[:k], rows[k : 2 * k], rows[2 * k : 3 * k]
+    nan_pair, empty, single, pair, tied = (rows[i * k : (i + 1) * k] for i in range(5))
     xq[nan_pair, rng.integers(0, nq, k)] = np.nan
     yq[nan_pair, rng.integers(0, nq, k)] = np.nan
     xq[empty] = np.nan
     xq[single, 1:] = np.nan
     yq[single, 1:] = np.nan
+    if extra:
+        xq[pair, 2:] = np.nan
+        if nq >= 3:
+            xq[tied, nq // 2 - 1] = xq[tied, nq // 2 + 1] = xq[tied, nq // 2]
     xs, ys, nv = _compact_nan_pairs(torch.as_tensor(xq, dtype=torch.float32), torch.as_tensor(yq, dtype=torch.float32))
     v = rng.normal(0, 3, (R, Lp)).astype(np.float32)   # ~half outside [x_first, x_last]
     v[rng.random((R, Lp)) < 0.01] = np.nan
+    if extra:
+        v[:, 3::11] = np.take_along_axis(xs.numpy(), rng.integers(0, nq, v[:, 3::11].shape), axis=-1)  # on nodes and pads
+        special = rng.random((R, Lp))
+        v[special < 0.002] = np.inf
+        v[(special >= 0.002) & (special < 0.004)] = -np.inf
     v[single, ::7] = xs[single, :1].numpy()             # exactly on the single node
     shape = lambda a, *tail: a.reshape(B, Gp, *tail).contiguous().to(device)  # noqa: E731
     return shape(torch.from_numpy(v), Lp), shape(xs, nq), shape(ys, nq), shape(nv.to(torch.int32))
+
+
+def bracket_inputs(B, Gp, nq, g0, g1, w, seed=0, device="cpu", extra=False):
+    """Inputs of the bracketed lookup over the [T] brackets (g0, g1, w):
+    values [B, T] and padded tables [B, Gp, nq] with the edge cases of
+    :func:`lookup_inputs` (``extra`` as there).  Returns (v, xs, ys, nvalid,
+    g0 int32, g1 int32, w f32) on ``device``."""
+    T = len(g0)
+    v, xs, ys, nv = lookup_inputs(B, Gp, -(-T // Gp), nq, seed=seed, extra=extra)
+    v = v.reshape(B, -1)[:, :T].contiguous()
+    steps = lambda a, dtype: torch.as_tensor(np.asarray(a), dtype=dtype).contiguous()  # noqa: E731
+    return tuple(a.to(device) for a in (v, xs, ys, nv, steps(g0, torch.int32), steps(g1, torch.int32), steps(w, torch.float32)))
+
+
+def fma_inputs(n, dtype, seed=0, device="cpu"):
+    """Three [n] operands of ``fma`` with its edge cases: scales from 2^-20
+    to 2^20, +-0, +-inf, NaN, subnormals, and products that cancel against
+    ``c`` (c = -(a * b) rounded, so the fused result is the product's
+    rounding error).  In float64 the subnormals stay in ``c``: the emulation
+    is exact only while the product's error term is representable."""
+    rng = np.random.default_rng(seed)
+    npdt = np.float32 if dtype == torch.float32 else np.float64
+    a, b, c = ((rng.normal(0, 1, n) * 2.0 ** rng.integers(-20, 21, n)).astype(npdt) for _ in range(3))
+    c[::3] = -(a[::3] * b[::3])
+    tiny = np.finfo(npdt).smallest_subnormal
+    specials = np.array([0.0, -0.0, np.inf, -np.inf, np.nan, tiny, -tiny, 37 * tiny, np.finfo(npdt).tiny / 2], npdt)
+    for i, x in enumerate((a, b, c)):
+        at = rng.choice(n, max(n // 20, 1), replace=False)
+        pick = specials if (dtype == torch.float32 or i == 2) else specials[:5]
+        x[at] = rng.choice(pick, len(at))
+    return tuple(torch.from_numpy(x).to(device) for x in (a, b, c))
 
 
 def example_problem(n_sites, n_years, seed=0, start="2000-01-01"):
@@ -267,6 +332,12 @@ def _compare(label, got, want):
     return err
 
 
+def _hold(err, key, label, kernel, twin, *args):
+    """``kernel(*args)`` against ``twin(*args)`` (:func:`_compare`), the
+    largest difference so far kept under ``err[key]``."""
+    err[key] = max(err.get(key, 0.0), _compare(label, kernel(*args), twin(*args)))
+
+
 def _compare_sort(label, key, lab):
     """K7 against its twin: keys under ``==`` and the pair multisets."""
     got_k, got_l = sort.sort_rows_with_payload(key, lab)
@@ -381,14 +452,15 @@ def _profile(label, step, ours):
 
 
 def _reset_counts():
-    interp_kernel.launches = interp_kernel.launches_2d = sort.launches = 0
+    interp_kernel.launches = interp_kernel.launches_2d = interp_kernel.launches_bracketed = 0
+    sort.launches = fma_kernel.launches = 0
     for k in merge.launches:
         merge.launches[k] = 0
 
 
 def _counts():
     return dict(merge.launches, interp_table_3d=interp_kernel.launches, interp_table_2d=interp_kernel.launches_2d,
-                sort_rows_with_payload=sort.launches)
+                interp_bracketed=interp_kernel.launches_bracketed, sort_rows_with_payload=sort.launches, fma=fma_kernel.launches)
 
 
 def main() -> int:
@@ -422,6 +494,77 @@ def main() -> int:
     lookup2 = lambda: interp_kernel.interp_table_2d(v2, xs2, ys2, nv2)  # noqa: E731
     lookup2_twin = lambda: interp_kernel.interp_table_2d_reference(v2, xs2, ys2, nv2)  # noqa: E731
     err["K2"] = _compare(f"K2 row lookup nq={NQ}", lookup2(), lookup2_twin())
+    # the lookup's other shapes: the windowed adjust's short partition rows
+    # (a warp a row), one value, lengths on and off a multiple of 4 and
+    # around the short-row limit, every table width's edge, a view that
+    # starts off 16 bytes
+    k1 = (interp_kernel.interp_table_3d, interp_kernel.interp_table_3d_reference)
+    k2 = (interp_kernel.interp_table_2d, interp_kernel.interp_table_2d_reference)
+    hgp, hlp = xp.Grouper("time.dayofyear", window=HEAVY_WINDOW).indexes(heavy_problem(1, HEAVY_YEARS)[0]).bracket_partitions("linear")["part0"].shape
+    vh, xsh, ysh, nvh = lookup_inputs(HEAVY_SITES, hgp, hlp, NQ, seed=3, device=dev)
+    lookup_short = lambda: interp_kernel.interp_table_3d(vh, xsh, ysh, nvh)  # noqa: E731
+    lookup_short_twin = lambda: interp_kernel.interp_table_3d_reference(vh, xsh, ysh, nvh)  # noqa: E731
+    _hold(err, "K1", f"K1 lookup, short rows nq={NQ}", *k1, vh, xsh, ysh, nvh)
+    _hold(err, "K1", f"K1 lookup, short rows, the search's edges nq={NQ}", *k1, *lookup_inputs(16, hgp, hlp, NQ, seed=5, device=dev, extra=True))
+    short = interp_kernel.SHORT_ROW
+    for B, gp, lp, nq in ((7, 3, 1, 1), (5, 4, 3, 2), (3, 5, 150, 64), (3, 5, short - 1, 50), (3, 5, short, 2), (2, 3, short + 1, 64), (2, 3, 4650, 1)):
+        edges = lookup_inputs(B, gp, lp, nq, seed=lp + nq, device=dev, extra=True)
+        _hold(err, "K1", f"K1 lookup nq={nq}", *k1, *edges)
+        _hold(err, "K2", f"K2 row lookup nq={nq}", *k2, *(a.reshape((B * gp,) + a.shape[2:]) for a in edges))
+    ve = edges[0]
+    off = torch.cat([ve.new_zeros(1), ve.reshape(-1)])[1:].reshape(ve.shape)  # contiguous, 4 bytes off a 16-byte boundary
+    assert off.is_contiguous() and off.data_ptr() % 16 == 4
+    err["K1"] = max(err["K1"], _compare("K1 lookup, values off 16 bytes", k1[0](off, *edges[1:]), k1[1](*edges)))
+    del off, ve, edges
+
+    # the bracketed lookup at the headline shape with the monthly brackets
+    # (also with the search's edges), and at a small odd shape with random
+    # brackets (w = 0 and 1, g0 == g1)
+    kbr = (interp_kernel.interp_bracketed, interp_kernel.interp_bracketed_reference)
+    mb = gi.bracket_partitions("linear")
+    bargs = bracket_inputs(N_SITES, Gp, NQ, mb["g0"], mb["g1"], mb["w"], seed=4, device=dev)
+    bracketed = lambda: interp_kernel.interp_bracketed(*bargs)  # noqa: E731
+    bracketed_twin = lambda: interp_kernel.interp_bracketed_reference(*bargs)  # noqa: E731
+    _hold(err, "bracketed", f"bracketed lookup, monthly brackets nq={NQ} Gp={Gp}", *kbr, *bargs)
+    _hold(err, "bracketed", f"bracketed lookup, monthly brackets, the search's edges nq={NQ}", *kbr,
+          *bracket_inputs(16, Gp, NQ, mb["g0"], mb["g1"], mb["w"], seed=9, device=dev, extra=True))
+    rng = np.random.default_rng(6)
+    odd_w = rng.random(1001)
+    odd_w[::5], odd_w[1::5] = 0.0, 1.0
+    odd_g0 = rng.integers(0, 5, 1001)
+    odd_g1 = np.where(rng.random(1001) < 0.2, odd_g0, rng.integers(0, 5, 1001))
+    _hold(err, "bracketed", "bracketed lookup, random brackets nq=7 Gp=5", *kbr, *bracket_inputs(3, 5, 7, odd_g0, odd_g1, odd_w, seed=7, device=dev, extra=True))
+
+    # the fused multiply-add against its emulation on its edge cases (same
+    # shape, broadcast, a transposed operand), then at the shapes the paths
+    # give it: the heavy extraction's lerp on the tensors phase 6 times (rows
+    # [2 * sites, doy, nq] against a [doy, nq] gamma; also in float64 and with
+    # gamma expanded), the same shape on the edge-case values, the QDM step's
+    # virtual index ([sites, 12, 1] * [nq] + [nq]) and same-shape lerp, and
+    # the selection step's lerp on slices of its [2 * sites, doy, 2 nq + 1]
+    # picks
+    kf = (fma_kernel.fma, fma_kernel.fma_reference)
+    fa, fc = torch.randn(2, 2 * HEAVY_SITES, 365, NQ, device=dev)
+    fb = torch.rand(365, NQ, device=dev)
+    for dtype in (torch.float32, torch.float64):
+        a, b, c = fma_inputs(2 * SEL_SITES * 365 * (2 * NQ + 1), dtype, seed=8, device=dev)  # the largest below
+        n = 1_000_003
+        _hold(err, "fma", f"fma {dtype} same shape", *kf, a[:n], b[:n], c[:n])
+        a2, b2, c2 = a[:1_000_000].reshape(250, 80, 50), b[:4000].reshape(80, 50), c[:250].reshape(250, 1, 1)
+        _hold(err, "fma", f"fma {dtype} broadcast", *kf, a2, b2, c2)
+        _hold(err, "fma", f"fma {dtype} transposed operand", *kf, a[:1_000_000].reshape(250, 50, 80).transpose(1, 2), b2, c2)
+        timed = (fa.to(dtype), fb.to(dtype), fc.to(dtype))
+        _hold(err, "fma", f"fma {dtype} heavy lerp, the timed operands", *kf, *timed)
+        _hold(err, "fma", f"fma {dtype} heavy lerp, gamma expanded", *kf, timed[0], timed[1].expand_as(timed[0]).contiguous(), timed[2])
+        _hold(err, "fma", f"fma {dtype} heavy lerp, edge values", *kf, a[: fa.numel()].reshape(fa.shape), b[: fb.numel()].reshape(fb.shape), c[: fc.numel()].reshape(fc.shape))
+        count, node = a[: N_SITES * 12].reshape(N_SITES, 12, 1), b[:NQ]
+        _hold(err, "fma", f"fma {dtype} QDM virtual index", *kf, count, node, c[:NQ])
+        lerp = tuple(x[: N_SITES * 12 * NQ].reshape(N_SITES, 12, NQ) for x in (a, b, c))
+        _hold(err, "fma", f"fma {dtype} QDM lerp", *kf, *lerp)
+        picks = a.reshape(2 * SEL_SITES, 365, 2 * NQ + 1)
+        gamma = b[: 2 * SEL_SITES * 365 * NQ].reshape(2 * SEL_SITES, 365, NQ)
+        _hold(err, "fma", f"fma {dtype} selection lerp on slices", *kf, picks[..., NQ : 2 * NQ], gamma, picks[..., :NQ])
+    del a, b, c, a2, b2, c2, timed, count, node, lerp, picks, gamma
 
     th, (href_np, hhist_np, hsim_np) = heavy_problem(HEAVY_SITES, HEAVY_YEARS)
     href, hhist, hsim = (torch.from_numpy(a).to(dev) for a in (href_np, hhist_np, hsim_np))
@@ -489,7 +632,9 @@ def main() -> int:
     assert scen.is_cuda and scen.dtype == torch.float32, (scen.device, scen.dtype)
     assert tuple(scen.shape) == (N_SITES, 365 * N_YEARS), tuple(scen.shape)
     assert bool(torch.isfinite(scen).all()), "non-finite output"
-    assert qdm_counts["interp_table_3d"] >= 2, f"QDM path launched K1 {qdm_counts['interp_table_3d']} times"
+    # one adjust: both brackets' lookups and the blend in one bracketed launch, no partition lookup
+    assert qdm_counts["interp_bracketed"] == 1 and qdm_counts["interp_table_3d"] == 0, f"QDM path launches {qdm_counts}"
+    assert qdm_counts["fma"] >= 1, f"QDM path launches {qdm_counts}"
     cut = slice(0, CHECK_SITES)
     want = run_main_path(*(torch.from_numpy(a[cut]) for a in (ref_np, hist_np, sim_np)), t)
     cpu_err = float((scen[cut].cpu() - want).abs().max())
@@ -532,7 +677,7 @@ def main() -> int:
         assert hscen.is_cuda and tuple(hscen.shape) == (HEAVY_SITES, 365 * HEAVY_YEARS), (hscen.device, tuple(hscen.shape))
         assert bool(torch.isfinite(hscen).all()), f"window {window}: non-finite output"
         need = ("sort_rows_alternating", "build_levels", "fold_windows") if window >= 9 else ("sort_rows_alternating", "merged_window_rows")
-        assert all(counts[k] >= 1 for k in need + ("interp_table_3d",)), f"window {window}: launches {counts}"
+        assert all(counts[k] >= 1 for k in need + ("interp_table_3d", "fma")), f"window {window}: launches {counts}"
         # one launch builds every level: one level build a fold
         assert counts["build_levels"] == counts["fold_windows"], f"window {window}: launches {counts}"
         with xp.set_options(selection_backend=False):  # the CPU's default engine is selection
@@ -648,7 +793,10 @@ def main() -> int:
           f"the {base / 2**30:.3f} GiB held before it)", flush=True)
 
     kb = dict(batch=KERNEL_BATCH)
-    times = {"K1": _in_turns(lookup, lookup_twin, **kb), "K2": _in_turns(lookup2, lookup2_twin, **kb)}
+    times = {"K1": _in_turns(lookup_short, lookup_short_twin, **kb), "K2": _in_turns(lookup2, lookup2_twin, **kb),
+             "bracketed": _in_turns(bracketed, bracketed_twin, **kb)}
+    # the heavy extraction's lerp, on the operands phase 3 held to the twin
+    times["fma"] = _in_turns(lambda: fma_kernel.fma(fa, fb, fc), lambda: fma_kernel.fma_reference(fa, fb, fc), **kb)
     times["K7"] = _in_turns(lambda: sort.sort_rows_with_payload(key7, lab7), lambda: sort.sort_rows_with_payload_reference(key7, lab7), **kb)
     times["K3"] = _in_turns(lambda: merge.sort_rows_alternating(slab), lambda: merge.sort_rows_alternating_reference(slab), **kb)
     times["K5"] = _in_turns(lambda: merge.build_levels(ordered, L), lambda: merge.build_levels_reference(ordered, L), **kb)
@@ -661,10 +809,21 @@ def main() -> int:
         lambda: merge.merged_window_rows(ordered5, SMALL_WINDOW, G, ymax=ymax),
         lambda: merge.merged_window_rows_reference(ordered5, SMALL_WINDOW, G, SMALL_WINDOW * ymax), **kb,
     )
-    shapes = {"K1": tuple(v.shape), "K2": tuple(v2.shape), "K3": tuple(slab.shape), "K5": tuple(ordered.shape), "K6": tuple(ordered.shape),
+    shapes = {"K1": tuple(vh.shape), "K2": tuple(v2.shape), "bracketed": tuple(bargs[0].shape), "fma": f"{tuple(fa.shape)} * {tuple(fb.shape)}", "K3": tuple(slab.shape), "K5": tuple(ordered.shape), "K6": tuple(ordered.shape),
               "K4": tuple(ordered5.shape), "K7": tuple(key7.shape)}
     for k, (kern, twin) in times.items():
         print(f"[time] {k} {KERNELS[k]['name']} {shapes[k]}: kernel {_fmt(kern)}; plain twin {_fmt(twin)}", flush=True)
+    # the lookup on the partition route's long rows (the headline's shape
+    # before the bracketed entry), fma on same-shape operands and in float64
+    kern, twin = _in_turns(lookup, lookup_twin, **kb)
+    print(f"[time] K1 long rows {tuple(v.shape)}: kernel {_fmt(kern)}; plain twin {_fmt(twin)}", flush=True)
+    fb_full = fb.expand_as(fa).contiguous()
+    kern, twin = _in_turns(lambda: fma_kernel.fma(fa, fb_full, fc), lambda: fma_kernel.fma_reference(fa, fb_full, fc), **kb)
+    print(f"[time] fma same shape {tuple(fa.shape)} f32: kernel {_fmt(kern)}; plain twin {_fmt(twin)}", flush=True)
+    fa64, fb64, fc64 = fa.double(), fb.double(), fc.double()
+    kern, twin = _in_turns(lambda: fma_kernel.fma(fa64, fb64, fc64), lambda: fma_kernel.fma_reference(fa64, fb64, fc64), **kb)
+    print(f"[time] fma {shapes['fma']} f64: kernel {_fmt(kern)}; plain twin {_fmt(twin)}", flush=True)
+    del fb_full, fa64, fb64, fc64
     # K3's long-row variant (off the port's paths at production shapes)
     wide = widened(slab, 2048)
     kern, twin = _in_turns(lambda: merge.sort_rows_alternating(wide), lambda: merge.sort_rows_alternating_reference(wide), **kb)
@@ -672,7 +831,7 @@ def main() -> int:
     del wide
 
     # one PyTorch call computing each kernel's function, where there is one:
-    # torch.sort of the same rows (K1 and K2 have none)
+    # torch.sort of the same rows, torch.addcmul for fma (the lookups have none)
     folded = merge.fold_windows(ordered, levels, HEAVY_WINDOW, G, ymax=ymax)
     merged5 = merge.merged_window_rows(ordered5, SMALL_WINDOW, G, ymax=ymax)
     shuffle = lambda a: a[..., torch.randperm(a.shape[-1], device=dev)].contiguous()  # noqa: E731
@@ -684,19 +843,24 @@ def main() -> int:
         "K6": lambda: torch.sort(wins, dim=-1),
         "K4": lambda: torch.sort(wins5, dim=-1),
         "K7": lambda: torch.sort(key7, dim=-1, stable=True),
+        "fma": lambda: torch.addcmul(fc, fa, fb),
     }
     library_ms = {k: _summary(_time_ms(fn, **kb))["median_ms"] for k, fn in library.items()}
     for k, ms in library_ms.items():
-        print(f"[time] {k} library call torch.sort {shapes[k]}: median {ms:.3f} ms", flush=True)
+        print(f"[time] {k} library call {'torch.addcmul' if k == 'fma' else 'torch.sort'} {shapes[k]}: median {ms:.3f} ms", flush=True)
     del wins, wins5, runs
 
     # least time on the card: bytes read and written once, and the
     # comparisons of the function (n log2 n for a sort, one per merged value
-    # and level, log2 of the runs for a k-way merge, log2 nq + 5 per lookup)
+    # and level, log2 of the runs for a k-way merge, log2 nq + 5 per lookup,
+    # two lookups and the blend's 3 per bracketed value, 2 per fma)
     f4 = 4
     log2 = lambda n: max(float(np.log2(n)), 1.0)  # noqa: E731
+    bv, bxs, _, bnv, bg0 = bargs[:5]
     bounds = {
-        "K1": _bound(v.numel() * 2 * f4 + xs.numel() * 2 * f4 + nv.numel() * 4, v.numel() * (log2(NQ) + 5)),
+        "K1": _bound(vh.numel() * 2 * f4 + xsh.numel() * 2 * f4 + nvh.numel() * 4, vh.numel() * (log2(NQ) + 5)),
+        "bracketed": _bound(bv.numel() * 2 * f4 + bxs.numel() * 2 * f4 + bnv.numel() * 4 + bg0.numel() * 12, bv.numel() * (2 * (log2(NQ) + 5) + 3)),
+        "fma": _bound((3 * fa.numel() + fb.numel()) * f4, 2 * fa.numel()),
         "K2": _bound(v2.numel() * 2 * f4 + xs2.numel() * 2 * f4 + nv2.numel() * 4, v2.numel() * (log2(NQ) + 5)),
         "K3": _bound(slab.numel() * 2 * f4, slab.numel() * log2(slab.shape[-1])),
         "K5": _bound((ordered.numel() + levels.numel()) * f4, levels.numel()),
@@ -707,14 +871,16 @@ def main() -> int:
     }
     del folded, merged5
 
-    ours = ("interp_table_3d_kernel", "sort_rows_warp_kernel", "sort_rows_alt_kernel", "build_levels_kernel", "fold_windows_kernel",
+    ours = ("interp_rows_kernel", "interp_bracketed_kernel", "fma_strided_kernel", "sort_rows_warp_kernel", "sort_rows_alt_kernel", "build_levels_kernel", "fold_windows_kernel",
             "radix_tile_sort_kernel", "merge_pass_kernel")
     _profile("one fused QDM step", qdm_step, ours)
     _profile(f"one fused windowed EQM step (doy+{HEAVY_WINDOW})", heavy_step, ours)
     _profile(f"one fused selection EQM step (doy+{HEAVY_WINDOW}, {SEL_SITES} sites)", sel_step, ours)
 
     launches = {
-        "K1": qdm_counts["interp_table_3d"],
+        "K1": paths[HEAVY_WINDOW]["interp_table_3d"],
+        "bracketed": qdm_counts["interp_bracketed"],
+        "fma": paths[HEAVY_WINDOW]["fma"],
         "K2": time_counts["interp_table_2d"],
         "K3": paths[HEAVY_WINDOW]["sort_rows_alternating"],
         "K5": paths[HEAVY_WINDOW]["build_levels"],
@@ -725,7 +891,7 @@ def main() -> int:
     rows = [
         dict(KERNELS[k], launches=launches[k], max_abs_err=err[k], ms=times[k][0]["median_ms"], plain_ms=times[k][1]["median_ms"],
              bound_ms=bounds[k][0], bound_by=bounds[k][1], library_ms=library_ms.get(k))
-        for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K7")
+        for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "bracketed", "fma")
     ]
     print(smi, flush=True)
     print(json.dumps({"kernels": rows}))

@@ -16,7 +16,9 @@ import torch
 
 import xsdba_tpu_torch as xp
 from chip_smoke import (
+    bracket_inputs,
     example_problem,
+    fma_inputs,
     heavy_problem,
     lookup_inputs,
     nan_masked,
@@ -26,9 +28,11 @@ from chip_smoke import (
     run_windowed_path,
     sort_inputs,
 )
-from xsdba_tpu_torch.ops import merge, selquant, sort
+from xsdba_tpu_torch.ops import interp, merge, selquant, sort
 from xsdba_tpu_torch.ops.correction import equally_spaced_nodes
+from xsdba_tpu_torch.ops.cuda import fma_kernel
 from xsdba_tpu_torch.ops.cuda import interp_kernel as k
+from xsdba_tpu_torch.ops.cuda.fma_kernel import fma
 
 pytestmark = pytest.mark.cuda
 
@@ -50,14 +54,35 @@ def _nan_equal(a, b):
     (4, 7, 333, 64),     # the widest table
     (3, 5, 100, 1),      # one-node tables
     (64, 14, 4650, 50),  # headline partition rows, fewer sites
+    (5, 4, 3, 2),        # all head, two-node tables
+    (16, 367, 150, 50),  # the windowed adjust's short rows: a warp a row
+    (3, 11, 150, 64),    # a row count that leaves a block part empty
+    (3, 5, 1023, 50),    # the longest row a warp takes (lengths off a multiple of 4)
+    (3, 5, 1024, 50),    # the shortest row a block takes
+    (3, 5, 1025, 1),
+    (2, 3, 4096, 33),    # one full tile
+    (2, 3, 4097, 17),    # a tile and one value
 ])
 def test_kernel_matches_twin_bitwise(cuda, B, Gp, Lp, nq):
-    v, xs, ys, nv = lookup_inputs(B, Gp, Lp, nq, seed=B + Lp, device=cuda)
+    v, xs, ys, nv = lookup_inputs(B, Gp, Lp, nq, seed=B + Lp, device=cuda, extra=True)
     before = k.launches
     got = k.interp_table_3d(v, xs, ys, nv)
     torch.cuda.synchronize()
     assert k.launches == before + 1
     assert got.is_cuda and got.dtype == torch.float32 and got.shape == v.shape
+    assert _nan_equal(got, k.interp_table_3d_reference(v, xs, ys, nv))
+
+
+@pytest.mark.parametrize("Lp", [7, 150, 4650])
+@pytest.mark.parametrize("shift", [1, 2, 3])
+def test_kernel_on_values_off_16_bytes(cuda, Lp, shift):
+    """A contiguous view that starts 4, 8 or 12 bytes off a 16-byte boundary
+    takes the scalar path."""
+    v, xs, ys, nv = lookup_inputs(3, 5, Lp, 50, seed=Lp + shift, device=cuda, extra=True)
+    off = torch.cat([v.new_zeros(shift), v.reshape(-1)])[shift:].reshape(v.shape)
+    assert off.is_contiguous() and off.data_ptr() % 16 == 4 * shift
+    got = k.interp_table_3d(off, xs, ys, nv)
+    torch.cuda.synchronize()
     assert _nan_equal(got, k.interp_table_3d_reference(v, xs, ys, nv))
 
 
@@ -69,10 +94,11 @@ def test_kernel_rejects_tables_on_another_device(cuda):
 
 def test_public_qdm_on_cuda_matches_cpu(cuda):
     t, data = example_problem(16, 4)
-    k.launches = 0
+    k.launches = k.launches_bracketed = 0
     got = run_main_path(*(torch.from_numpy(a).to(cuda) for a in data), t)
     torch.cuda.synchronize()
-    assert k.launches == 2 and got.is_cuda and bool(torch.isfinite(got).all())
+    # one adjust: both brackets' lookups and the blend in one bracketed launch
+    assert (k.launches_bracketed, k.launches) == (1, 0) and got.is_cuda and bool(torch.isfinite(got).all())
     want = run_main_path(*(torch.from_numpy(a) for a in data), t)
     torch.testing.assert_close(got.cpu(), want, rtol=2e-6, atol=2e-6)
 
@@ -345,7 +371,7 @@ def test_row_sort_with_payload_on_ties(cuda, case, T):
 
 @pytest.mark.parametrize("R,L,nq", [(1, 1, 2), (7, 2049, 50), (5, 333, 64), (4, 100, 1), (512, 4650, 50)])
 def test_row_lookup_matches_twin_bitwise(cuda, R, L, nq):
-    v, xs, ys, nv = (a.reshape(R, -1).contiguous() for a in lookup_inputs(R, 1, L, nq, seed=R + L, device=cuda))
+    v, xs, ys, nv = (a.reshape(R, -1).contiguous() for a in lookup_inputs(R, 1, L, nq, seed=R + L, device=cuda, extra=True))
     nv = nv.reshape(R)
     before = k.launches_2d
     got = k.interp_table_2d(v, xs, ys, nv)
@@ -413,3 +439,154 @@ def test_object_from_file_adjusts_on_the_card(cuda, tmp_path):
     got = xp.EmpiricalQuantileMapping.from_file(path).adjust(mk(sim), interp="linear").data
     assert got.is_cuda
     torch.testing.assert_close(got.cpu(), want, rtol=2e-6, atol=2e-6)
+
+
+# ------------------------------------------------ bracketed lookup, fma
+
+
+def _random_brackets(T, Gp, seed):
+    """[T] brackets over Gp groups with w = 0 and 1 and g0 == g1 among them."""
+    rng = np.random.default_rng(seed)
+    g0 = rng.integers(0, Gp, T)
+    g1 = np.where(rng.random(T) < 0.2, g0, rng.integers(0, Gp, T))
+    w = rng.random(T)
+    w[::5], w[1::5] = 0.0, 1.0
+    return g0, g1, w
+
+
+@pytest.mark.parametrize("B,T,Gp,nq", [
+    (1, 1, 3, 2),
+    (3, 1001, 3, 7),       # Gp = 3 (one group, padded), an odd length
+    (5, 8192, 14, 50),     # one full tile
+    (4, 8193, 14, 50),     # a tile and one value
+    (6, 54750, 14, 50),    # the headline's row: odd sites start 8 bytes off
+    (3, 3000, 14, 64),
+    (2, 777, 14, 1),
+    (2, 5000, 46, 50),     # the most tables the kernel takes
+    (2, 5000, 46, 64),
+])
+def test_bracketed_kernel_matches_twin_bitwise(cuda, B, T, Gp, nq):
+    args = bracket_inputs(B, Gp, nq, *_random_brackets(T, Gp, seed=T + Gp), seed=B + T, device=cuda, extra=True)
+    before = k.launches_bracketed
+    got = k.interp_bracketed(*args)
+    torch.cuda.synchronize()
+    assert k.launches_bracketed == before + 1 and got.is_cuda and tuple(got.shape) == (B, T)
+    assert _nan_equal(got, k.interp_bracketed_reference(*args))
+
+
+def test_bracketed_kernel_on_monthly_brackets_and_an_unfitted_site(cuda):
+    """The calendar's brackets; site 1 has no fitted table at all (NaN
+    everywhere), site 2 one unfitted month."""
+    t, _ = example_problem(1, 7)
+    b = xp.Grouper("time.month").indexes(t).bracket_partitions("linear")
+    v, xs, ys, nv, g0, g1, w = bracket_inputs(4, 14, 50, b["g0"], b["g1"], b["w"], seed=3, device=cuda, extra=True)
+    xs[1], ys[1], nv[1] = torch.inf, torch.nan, 0
+    xs[2, 5], ys[2, 5], nv[2, 5] = torch.inf, torch.nan, 0
+    g0[3], g1[4] = 14, -1   # ids outside [0, Gp) have no table: NaN, and no read outside the tables
+    got = k.interp_bracketed(v, xs, ys, nv, g0, g1, w)
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(got[1]).all()) and not bool(torch.isnan(got[0]).all()) and bool(torch.isnan(got[:, 3:5]).all())
+    assert _nan_equal(got, k.interp_bracketed_reference(v, xs, ys, nv, g0, g1, w))
+
+
+def test_bracketed_kernel_on_values_off_16_bytes(cuda):
+    args = bracket_inputs(3, 14, 50, *_random_brackets(4001, 14, seed=5), seed=6, device=cuda)
+    v = args[0]
+    off = torch.cat([v.new_zeros(1), v.reshape(-1)])[1:].reshape(v.shape)
+    assert off.data_ptr() % 16 == 4
+    got = k.interp_bracketed(off, *args[1:])
+    torch.cuda.synchronize()
+    assert _nan_equal(got, k.interp_bracketed_reference(*args))
+
+
+@pytest.mark.parametrize("G,route", [(12, "bracketed"), (44, "bracketed"), (45, "partition")])
+def test_grouped_lookup_route_on_the_card(cuda, G, route):
+    """``interp_grouped_partitioned`` on CUDA tensors: blended brackets whose
+    G + 2 padded tables fit shared memory take one bracketed launch and no
+    K1; one table more and it takes the partition route through K1, twice.
+    Both equal the CPU path bit for bit."""
+    rng = np.random.default_rng(G)
+    T, nq = 3000, 50
+    pos = np.sort(rng.random(T)) * G
+    g0 = np.clip(np.floor(pos).astype(np.int64), 0, G - 1)
+    brackets = dict(g0=g0 + 1, g1=g0 + 2, w=pos - g0)
+    parts = {}
+    for side in ("0", "1"):
+        grp = brackets["g" + side]
+        counts = np.bincount(grp, minlength=G + 2)
+        part = np.full((G + 2, counts.max()), -1, np.int64)
+        slot = np.zeros(T, np.int64)
+        for g in range(G + 2):
+            at = np.nonzero(grp == g)[0]
+            part[g, : len(at)] = at
+            slot[at] = np.arange(len(at))
+        parts[side] = (part, grp, slot)
+    xq = np.sort(rng.normal(0, 1, (3, G, nq)), axis=-1).astype(np.float32)
+    yq = rng.normal(0, 1, (3, G, nq)).astype(np.float32)
+    v = rng.normal(0, 1.5, (3, T)).astype(np.float32)
+    call = lambda dev: interp.interp_grouped_partitioned(  # noqa: E731
+        *(torch.from_numpy(a).to(dev) for a in (v, xq, yq)), *parts["0"], *parts["1"], brackets["w"], "linear", "constant", tables_compact=True)
+    assert interp.lookup_route("cuda", torch.float32, nq, G + 2, True, "linear", "constant") == route
+    k.launches = k.launches_bracketed = 0
+    got = call(cuda)
+    torch.cuda.synchronize()
+    assert (k.launches_bracketed, k.launches) == ((1, 0) if route == "bracketed" else (0, 2))
+    assert _nan_equal(got.cpu(), call("cpu"))
+
+
+def test_grouped_lookup_takes_the_brackets_steps_as_they_are(cuda):
+    """With ``Brackets.steps`` on the card the bracketed route converts
+    nothing and gives the CPU path's bits; steps on another device are
+    converted, not passed on."""
+    from xsdba_tpu_torch.models._wrap import device_brackets
+
+    t, (_, hist, sim) = example_problem(3, 2)
+    gi = xp.Grouper("time.month").indexes(t)
+    rng = np.random.default_rng(3)
+    xq = np.sort(rng.normal(13, 3, (3, 12, 50)), axis=-1).astype(np.float32)
+    yq = rng.normal(0, 1, (3, 12, 50)).astype(np.float32)
+    call = lambda dev, br: interp.interp_grouped_partitioned(  # noqa: E731
+        *(torch.from_numpy(a).to(dev) for a in (sim, xq, yq)), *br, "linear", "constant", tables_compact=True, steps=br.steps)
+    want = call("cpu", device_brackets(gi, "linear"))
+    for br in (device_brackets(gi, "linear", cuda), device_brackets(gi, "linear")):
+        k.launches = k.launches_bracketed = 0
+        got = call(cuda, br)
+        torch.cuda.synchronize()
+        assert (k.launches_bracketed, k.launches) == (1, 0)
+        assert _nan_equal(got.cpu(), want)
+
+
+def test_bracketed_wrapper_raises_over_its_budget(cuda):
+    args = bracket_inputs(2, 47, 50, *_random_brackets(100, 47, seed=1), seed=2, device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        k.interp_bracketed(*args)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", ["same shape", "broadcast", "transposed", "scalars", "off 16 bytes", "short"])
+def test_fma_kernel_matches_emulation_bitwise(cuda, dtype, case):
+    a, b, c = fma_inputs(200_003, dtype, seed=len(case), device=cuda)
+    if case == "broadcast":      # the static extraction's lerp: [rows, G, nq] against [G, nq], and a column
+        a, b, c = a[:200_000].reshape(50, 80, 50), b[:4000].reshape(80, 50), c[:50].reshape(50, 1, 1)
+    elif case == "transposed":
+        a, b, c = a[:200_000].reshape(400, 500).T, b[:200_000].reshape(500, 400), c[:500].reshape(500, 1)
+    elif case == "scalars":      # the virtual index's offset: 0-dim operands
+        b, c = b[7].reshape(()), c[9].reshape(())
+    elif case == "off 16 bytes":
+        a, b, c = a[1:], b[1:], c[1:]
+    elif case == "short":
+        a, b, c = a[:3], b[:3], c[:3]
+    before = fma_kernel.launches
+    got = fma(a, b, c)
+    torch.cuda.synchronize()
+    assert fma_kernel.launches == before + 1 and got.is_cuda and got.dtype == dtype
+    assert got.shape == torch.broadcast_shapes(a.shape, b.shape, c.shape)
+    assert _nan_equal(got, fma_kernel.fma_reference(a, b, c))
+
+
+def test_fma_kernel_rejects_mixed_operands(cuda):
+    a, b, c = fma_inputs(10, torch.float32, device=cuda)
+    with pytest.raises(TypeError):
+        fma(a, b.double(), c)
+    with pytest.raises(ValueError):
+        fma(a, b.cpu(), c)

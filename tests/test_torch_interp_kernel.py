@@ -257,3 +257,185 @@ def test_row_wrapper_on_cpu_runs_twin_and_checks_shapes():
         k.interp_table_2d(args[0], xs[:2], ys[:2], args[3])
     with pytest.raises(TypeError):
         k.interp_table_2d(args[0].double(), *args[1:])
+
+
+# ------------------------------------------------- the bracketed entry
+
+
+def _month_brackets(years=2):
+    from xsdba_tpu.utils.calendar import date_range
+    from xsdba_tpu.utils.grouper import Grouper
+
+    gi = Grouper("time.month").indexes(date_range("2001-01-01", periods=365 * years, freq="D", calendar="noleap"))
+    return gi.bracket_partitions("linear")
+
+
+def _bracket_problem(seed=9, B=3, nq=11, single_node=True):
+    """Monthly brackets over two noleap years, raw [B, 12, nq] tables (an
+    unfitted group; optionally a single-node group) and [B, T] values."""
+    b = _month_brackets()
+    rng = np.random.default_rng(seed)
+    xq = np.sort(rng.normal(10, 3, (B, 12, nq)), axis=-1).astype(np.float32)
+    yq = rng.normal(0, 1, (B, 12, nq)).astype(np.float32)
+    xq[1, 4] = yq[1, 4] = np.nan
+    if single_node:
+        xq[2, 7, 1:] = yq[2, 7, 1:] = np.nan
+    v = rng.normal(10, 4, (B, len(b["g0"]))).astype(np.float32)
+    v[0, :5] = np.nan
+    v[2, 200:230:3] = xq[2, 7, 0]
+    return b, v, xq, yq
+
+
+def _padded(xq, yq):
+    """The compacted, cyclically padded tables the bracketed entry takes."""
+    xs, ys, nv = tinterp._pad_cyclic_tables(*_torch(xq, yq))
+    return xs.contiguous(), ys.contiguous(), nv.to(torch.int32).contiguous()
+
+
+def _steps(b):
+    return torch.as_tensor(b["g0"], dtype=torch.int32), torch.as_tensor(b["g1"], dtype=torch.int32), torch.as_tensor(b["w"], dtype=torch.float32)
+
+
+def test_bracketed_twin_equals_jitted_reference_grouped_lookup():
+    """``interp_bracketed_reference`` against the reference's compiled
+    ``interp_grouped_partitioned`` (XLA fuses the interpolation and the
+    bracket blend): bit for bit."""
+    from xsdba_tpu.ops.interp import interp_grouped_partitioned as jgrouped
+
+    b, v, xq, yq = _bracket_problem()
+    parts = [b[n] for n in ("part0", "g0", "slot0", "part1", "g1", "slot1", "w")]
+    want = jax.jit(lambda a, x, y: jgrouped(a, x, y, *parts, "linear", "constant"))(v, xq, yq)
+    got = k.interp_bracketed_reference(torch.as_tensor(v), *_padded(xq, yq), *_steps(b))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_bracketed_twin_matches_pallas_kernel_through_the_partition_layout():
+    """The TPU's route: the values gathered into bracket partitions, the
+    Pallas kernel (interpret mode) on each, gathered back and blended.  The
+    blend here is numpy's, rounded twice: rtol = atol = 2e-6."""
+    b, v, xq, yq = _bracket_problem(seed=10, single_node=False)  # the Pallas body's single-node fault: ROADMAP C7
+    xs, ys, nv = _padded(xq, yq)
+    T = v.shape[-1]
+
+    def side(part, grp, slot):
+        vals = np.where(part >= 0, v[:, np.clip(part, 0, T - 1)], np.nan).astype(np.float32)
+        out = interp_table_pallas_3d(jnp.asarray(vals), jnp.asarray(xs.numpy()), jnp.asarray(ys.numpy()), jnp.asarray(nv.numpy()), interpret=True)
+        return np.asarray(out)[:, grp, slot]
+
+    w = b["w"].astype(np.float32)
+    want = (1 - w) * side(b["part0"], b["g0"], b["slot0"]) + w * side(b["part1"], b["g1"], b["slot1"])
+    got = k.interp_bracketed_reference(torch.as_tensor(v), xs, ys, nv, *_steps(b))
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+def test_partition_route_equals_bracketed_twin_on_cpu():
+    """On a CPU tensor ``interp_grouped_partitioned`` runs the partition
+    route (two lookups through K1's twin, then the fused blend), and the
+    bracketed wrapper its twin: the same bits, no launch counted."""
+    b, v, xq, yq = _bracket_problem(seed=11)
+    parts = [b[n] for n in ("part0", "g0", "slot0", "part1", "g1", "slot1", "w")]
+    want = tinterp.interp_grouped_partitioned(*_torch(v, xq, yq), *parts, "linear", "constant")
+    before = k.launches_bracketed
+    got = k.interp_bracketed(torch.as_tensor(v), *_padded(xq, yq), *_steps(b))
+    assert k.launches_bracketed == before
+    torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+
+
+def test_bracketed_twin_gives_nan_for_a_group_without_a_table():
+    b, v, xq, yq = _bracket_problem(seed=12)
+    g0, g1, w = _steps(b)
+    g0 = g0.clone()
+    g0[3], g0[4] = 14, -1
+    got = k.interp_bracketed_reference(torch.as_tensor(v), *_padded(xq, yq), g0, g1, w)
+    assert torch.isnan(got[:, 3:5]).all() and not torch.isnan(got[1:, 5:40]).any()
+
+
+@pytest.mark.parametrize("device,dtype,nq,gp,blended,method,extrap,route", [
+    ("cuda", torch.float32, 50, 14, True, "linear", "constant", "bracketed"),    # monthly QDM/EQM on the card
+    ("cuda", torch.float32, 64, 6, True, "linear", "constant", "bracketed"),     # seasonal, the widest table
+    ("cuda", torch.float32, 50, 367, False, "linear", "constant", "partition"),  # dayofyear: collapsed brackets
+    ("cuda", torch.float32, 50, 367, True, "linear", "constant", "partition"),   # 367 tables do not fit shared memory
+    ("cuda", torch.float32, 50, 46, True, "linear", "constant", "bracketed"),    # the most tables that fit
+    ("cuda", torch.float32, 50, 47, True, "linear", "constant", "partition"),
+    ("cpu", torch.float32, 50, 14, True, "linear", "constant", "partition"),     # K1's twin on partition rows
+    ("cuda", torch.float64, 50, 14, True, "linear", "constant", "plain"),
+    ("cuda", torch.float32, 65, 14, True, "linear", "constant", "plain"),
+    ("cuda", torch.float32, 50, 14, True, "nearest", "constant", "plain"),
+    ("cuda", torch.float32, 50, 14, True, "linear", "nan", "plain"),
+    ("meta", torch.float32, 50, 14, True, "linear", "constant", "plain"),
+])
+def test_lookup_route_is_a_function_of_shape_dtype_and_device(device, dtype, nq, gp, blended, method, extrap, route):
+    assert tinterp.lookup_route(device, dtype, nq, gp, blended, method, extrap) == route
+
+
+def test_device_brackets_keep_the_kernels_steps():
+    """Blended brackets carry g0, g1 as int32 and w as float32, ready for the
+    bracketed kernel; collapsed brackets (dayofyear) carry none."""
+    from xsdba_tpu_torch.models._wrap import device_brackets
+
+    t = xp.date_range("2000-01-01", periods=730, freq="D", calendar="noleap")
+    br = device_brackets(xp.Grouper("time.month").indexes(t), "linear")
+    g0, g1, w = br.steps
+    assert (g0.dtype, g1.dtype, w.dtype) == (torch.int32, torch.int32, torch.float32)
+    assert all(a.is_contiguous() and a.shape == (730,) for a in br.steps)
+    assert torch.equal(g0.long(), br.g0) and torch.equal(g1.long(), br.g1) and torch.equal(w, br.w.float())
+    assert len(tuple(br)) == 7
+    assert device_brackets(xp.Grouper("time.dayofyear").indexes(t), "linear").steps is None
+
+
+def test_bracketed_shared_memory_budget():
+    """Per table, whatever its width: 65 (x, y) pairs, 129 probe nodes, four
+    constants and the count."""
+    assert k.bracketed_smem_bytes(1) == 8 * 65 + 4 * 129 + 16 + 4 == 1056
+    assert k.bracketed_smem_bytes(14) == 14784
+    assert k.bracketed_fits(46, 50) and not k.bracketed_fits(47, 50)
+    assert k.bracketed_fits(46, 64) and k.bracketed_fits(46, 1) and not k.bracketed_fits(47, 1)
+    assert not k.bracketed_fits(14, 65) and not k.bracketed_fits(0, 50) and not k.bracketed_fits(14, 0)
+
+
+def _bad_bracketed(case):
+    b, v, xq, yq = _bracket_problem(seed=13)
+    xs, ys, nv = _padded(xq, yq)
+    g0, g1, w = _steps(b)
+    v = torch.as_tensor(v)
+    many = torch.zeros((3, 47, 50))
+    return {
+        "v float64": ((v.double(), xs, ys, nv, g0, g1, w), TypeError),
+        "g0 int64": ((v, xs, ys, nv, g0.long(), g1, w), TypeError),
+        "w float64": ((v, xs, ys, nv, g0, g1, w.double()), TypeError),
+        "v not 2-d": ((v[None], xs, ys, nv, g0, g1, w), ValueError),
+        "tables of other sites": ((v, xs[:2], ys[:2], nv[:2], g0, g1, w), ValueError),
+        "nvalid shape": ((v, xs, ys, nv[:, :3], g0, g1, w), ValueError),
+        "brackets of another length": ((v, xs, ys, nv, g0[:-1], g1[:-1], w[:-1]), ValueError),
+        "tables over the budget": ((v, many, many, torch.zeros((3, 47), dtype=torch.int32), g0, g1, w), ValueError),
+        "not contiguous": ((v.T.contiguous().T, xs, ys, nv, g0, g1, w), ValueError),
+    }[case]
+
+
+@pytest.mark.parametrize("case", [
+    "v float64", "g0 int64", "w float64", "v not 2-d", "tables of other sites", "nvalid shape",
+    "brackets of another length", "tables over the budget", "not contiguous",
+])
+def test_bracketed_wrapper_rejects_what_the_kernel_does_not_take(case):
+    args, err = _bad_bracketed(case)
+    with pytest.raises(err):
+        k.interp_bracketed(*args)
+
+
+def test_chip_smoke_lookup_inputs_hold_the_binary_search_edges():
+    """Tied nodes, two-node tables, +-inf values and values exactly on nodes
+    are in ``chip_smoke.py``'s recipe, and on them the twin agrees with the
+    reference's plain lookup bit for bit under ``jit``."""
+    from chip_smoke import bracket_inputs, lookup_inputs
+
+    v, xs, ys, nv = lookup_inputs(4, 15, 90, 13, seed=14, extra=True)
+    assert (nv == 2).any() and bool(((xs[..., 1:] == xs[..., :-1]) & torch.isfinite(xs[..., 1:])).any())
+    assert torch.isposinf(v).any() and torch.isneginf(v).any()
+    assert bool((v[..., None] == xs[..., None, :]).any(-1).float().mean() > 0.05)
+    got = k.interp_table_3d(v, xs, ys, nv)
+    want = jax.jit(lambda *a: _interp_unrolled(*a, "linear", "constant"))(*(jnp.asarray(a.numpy()) for a in (v, xs, ys, nv)))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    b = _month_brackets(1)
+    args = bracket_inputs(2, 14, 9, b["g0"], b["g1"], b["w"], seed=15, extra=True)
+    assert tuple(args[0].shape) == (2, 365) and args[4].dtype == torch.int32 and args[6].dtype == torch.float32
+    assert torch.isfinite(k.interp_bracketed(*args)).any()

@@ -284,3 +284,82 @@ def test_golden_grouped_interp_matches_griddata_isolines(pack):
         *(b[k] for k in ("part0", "g0", "slot0", "part1", "g1", "slot1", "w")), "linear", "constant",
     )
     np.testing.assert_allclose(_np(got), pack["g2_want"], rtol=1e-10, atol=1e-12)
+
+
+# --------------------------------------------------------------------- fma
+
+
+def _round_nearest_even(x, dtype):
+    """The exact rational ``x`` rounded to nearest, ties to even, in
+    ``dtype``'s format (subnormals and overflow included)."""
+    from fractions import Fraction
+
+    info = np.finfo(dtype)
+    p, emin = info.nmant + 1, info.minexp
+    if x == 0:
+        return dtype(0.0)
+    mag = abs(x)
+    e = mag.numerator.bit_length() - mag.denominator.bit_length()
+    e -= mag < Fraction(2) ** e                    # 2^e <= mag < 2^(e + 1)
+    ulp = Fraction(2) ** (max(e, emin) - p + 1)
+    n, rest = divmod(mag, ulp)
+    n += rest > ulp / 2 or (rest == ulp / 2 and n % 2 == 1)
+    out = n * ulp
+    if out > Fraction(float(info.max)):
+        return dtype(np.copysign(np.inf, float(x)))
+    # n * ulp has at most p significant bits: the conversions below are exact
+    return dtype(np.copysign(np.ldexp(np.float64(int(n)), int(max(e, emin) - p + 1)), 1 if x > 0 else -1))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_fma_emulation_is_the_exactly_rounded_fused_result(dtype):
+    """``fma`` on a CPU tensor (the emulation) on ``chip_smoke.py``'s operand recipe (scales
+    2^-20 to 2^20, signed zeros, subnormals, products that cancel against
+    ``c``) against exact rational arithmetic rounded once; a non-finite
+    operand gives what the plain expression gives."""
+    from fractions import Fraction
+
+    from chip_smoke import fma_inputs
+    from xsdba_tpu_torch.ops.cuda.fma_kernel import fma
+    from xsdba_tpu_torch.utils.tensor import fma_emulated
+
+    tdt = torch.float32 if dtype == np.float32 else torch.float64
+    a, b, c = fma_inputs(600, tdt, seed=21)
+    got = fma(a, b, c)
+    assert got.dtype == tdt
+    torch.testing.assert_close(fma_emulated(a, b, c), got, rtol=0, atol=0, equal_nan=True)  # a CPU tensor: the twin
+    an, bn, cn, gn = (x.numpy() for x in (a, b, c, got))
+    finite = np.isfinite(an) & np.isfinite(bn) & np.isfinite(cn)
+    assert 400 < finite.sum() < 600 and (an[finite] == 0).any() and (np.abs(cn[finite]) < np.finfo(dtype).tiny).any()
+    want = np.array([_round_nearest_even(Fraction(float(x)) * Fraction(float(y)) + Fraction(float(z)), dtype)
+                     for x, y, z in zip(an[finite], bn[finite], cn[finite])])
+    np.testing.assert_array_equal(gn[finite], want)
+    with np.errstate(invalid="ignore"):
+        plain = an * bn + cn
+    assert (gn[finite] != plain[finite]).sum() > 50                # the plain expression rounds twice
+    np.testing.assert_array_equal(gn[~finite], plain[~finite])
+
+
+def test_fma_broadcasts_and_checks_its_operands():
+    """A CPU tensor takes the emulation and launches nothing; operands of
+    mixed dtype or device are refused on the CPU as on the card, through the
+    quantile lerp too."""
+    from xsdba_tpu_torch.ops.cuda import fma_kernel
+    from xsdba_tpu_torch.ops.cuda.fma_kernel import fma
+    from xsdba_tpu_torch.ops.quantile import _lerp
+
+    rng = np.random.default_rng(22)
+    a, b, c = (torch.as_tensor(rng.normal(0, 1, s).astype(np.float32)) for s in ((4, 5, 6), (5, 6), (4, 1, 1)))
+    before = fma_kernel.launches
+    got = fma(a, b, c)
+    assert got.shape == (4, 5, 6) and fma_kernel.launches == before
+    full = [t.expand(4, 5, 6).contiguous() for t in (a, b, c)]
+    torch.testing.assert_close(got, fma(*full), rtol=0, atol=0)
+    with pytest.raises(TypeError):
+        fma(a, b.double(), c)
+    with pytest.raises(TypeError):
+        fma(a.long(), b.long(), c.long())
+    with pytest.raises(ValueError):
+        fma(a, b.to("meta"), c)
+    with pytest.raises(TypeError):
+        _lerp(a, a + 1, torch.full((6,), 0.25, dtype=torch.float64))

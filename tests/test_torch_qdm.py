@@ -2,9 +2,13 @@
 
 The fused ``qdm_train_adjust_core`` step and the public
 ``EmpiricalQuantileMapping`` / ``QuantileDeltaMapping`` classes run on the
-same numpy inputs through both packages.  float64 within 1e-12 (the frozen
-end-to-end values are held at 1e-12 too); float32 within rtol = atol = 2e-6
-(XLA's CPU FMA contraction).
+same numpy inputs through both packages.  The fused step and the adjusted
+series of the public cases equal the reference bit for bit (the port rounds
+the quantile lerp, the lookup and the bracket blend once, as XLA's CPU
+backend contracts them in the reference's compiled programs).  Trained
+tables are held at 1e-12 in float64 (the frozen end-to-end values too) and
+rtol = atol = 2e-6 in float32: the reference computes ``hist_q_raw`` outside
+its compiled programs, unfused, an ulp away (ROADMAP C11).
 """
 
 import os
@@ -58,9 +62,9 @@ def _np(da):
 # ------------------------------------------------------------- fused step
 
 
-@pytest.mark.parametrize("dtype", [np.float64, np.float32])
-def test_fused_qdm_train_adjust_core(dtype):
-    """The headline step at ``__graft_entry__._example_problem(8, 5)``."""
+def _fused_step_both(n_sites, n_years, dtype, kind):
+    """(port, reference) outputs of the fused QDM step on
+    ``__graft_entry__._example_problem(n_sites, n_years)``."""
     from functools import partial
 
     from __graft_entry__ import _example_problem
@@ -68,20 +72,39 @@ def test_fused_qdm_train_adjust_core(dtype):
     from xsdba_tpu_torch.models._algos import qdm_train_adjust_core
     from xsdba_tpu_torch.models._wrap import device_brackets
 
-    args = _example_problem(n_sites=8, n_years=5, dtype=dtype)
-    want = np.asarray(partial(jcore, kind="+", interp="linear", extrapolation="constant")(*args))
+    args = _example_problem(n_sites=n_sites, n_years=n_years, dtype=dtype)
+    want = np.asarray(partial(jcore, kind=kind, interp="linear", extrapolation="constant")(*args))
     ref, hist, sim, gather_idx, group_idx, scatter_slot, q = (np.array(a) for a in args[:6] + (args[7],))
-    t = xp.date_range("2000-01-01", periods=365 * 5, freq="D", calendar="noleap")
+    t = xp.date_range("2000-01-01", periods=365 * n_years, freq="D", calendar="noleap")
     gi = xp.Grouper("time.month").indexes(t)
     np.testing.assert_array_equal(gi.gather_idx, gather_idx)
     got = qdm_train_adjust_core(
         torch.as_tensor(ref), torch.as_tensor(hist), torch.as_tensor(sim),
         torch.as_tensor(gather_idx), torch.as_tensor(group_idx), torch.as_tensor(scatter_slot),
         device_brackets(gi, "linear"), torch.as_tensor(q),
-        kind="+", interp="linear", extrapolation="constant",
+        kind=kind, interp="linear", extrapolation="constant",
     )
     assert got.dtype == torch.from_numpy(ref).dtype and got.shape == ref.shape
-    np.testing.assert_allclose(got.numpy(), want, **(F64 if dtype == np.float64 else F32))
+    return got.numpy(), want
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_fused_qdm_train_adjust_core(dtype):
+    """The headline step at ``__graft_entry__._example_problem(8, 5)``, bit
+    for bit."""
+    got, want = _fused_step_both(8, 5, dtype, "+")
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("n_sites,n_years", [(8, 5), (16, 10)])
+@pytest.mark.parametrize("kind", ["+", "*"])
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_fused_qdm_step_equals_reference_bitwise(dtype, kind, n_sites, n_years):
+    """Both kinds, both dtypes, two sizes: no output differs from the
+    reference's compiled step (the bracket blend rounded once, ROADMAP
+    C10)."""
+    got, want = _fused_step_both(n_sites, n_years, dtype, kind)
+    np.testing.assert_array_equal(got, want)
 
 
 # ------------------------------------------------------------- public API
@@ -124,6 +147,24 @@ def test_public_api_matches_reference(e2e, e2e_port, cls, train_kw, adjust_kw):
     sg = got.adjust(e2e_port["sim"], **adjust_kw)
     assert sg.dims == sw.dims and sg.attrs["units"] == sw.attrs["units"]
     np.testing.assert_allclose(_np(sg), _np(sw), **F64)
+
+
+def _ref_da(da, dtype):
+    return xt.DataArray(np.asarray(da.data, dtype), da.dims, dict(da.coords), dict(da.attrs), da.name)
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("cls,train_kw,adjust_kw", [c for c in ADJUST_CASES if c[2].get("mode") != "reference"])
+def test_public_api_scen_equals_reference_bitwise(e2e, cls, train_kw, adjust_kw, dtype):
+    """Every public case that adjusts through the port's own lookup (the
+    monthly linear ones through ``interp_grouped_partitioned`` and its fused
+    blend): the adjusted series equals the reference's under ``==``, in both
+    dtypes."""
+    ref, hist, sim = (_ref_da(e2e[k], dtype) for k in ("ref", "hist", "sim"))
+    want = getattr(xt, cls).train(ref, hist, **train_kw).adjust(sim, **adjust_kw)
+    got = getattr(xp, cls).train(_port_da(ref, dtype), _port_da(hist, dtype), **train_kw).adjust(_port_da(sim, dtype), **adjust_kw)
+    assert got.data.dtype == torch.from_numpy(np.zeros(1, dtype)).dtype
+    np.testing.assert_array_equal(got.data.numpy(), np.asarray(want.data))
 
 
 def test_float32_public_path_keeps_dtype_and_device(e2e, e2e_port):

@@ -88,7 +88,8 @@ def qm_adjust_core(sim, hist_q, af, brackets, *, kind: str, interp: str, extrapo
         af_t = interp1d_table(sim, hist_q[..., 0, :], af[..., 0, :], interp, extrapolation)
     else:
         af_t = interp_grouped_partitioned(
-            sim, hist_q, af, *brackets, interp, extrapolation, tables_compact=tables_compact
+            sim, hist_q, af, *brackets, interp, extrapolation, tables_compact=tables_compact,
+            steps=getattr(brackets, "steps", None),
         )
     return apply_correction(sim, af_t, kind)
 
@@ -107,7 +108,8 @@ def qdm_adjust_core(sim, af, quantiles, brackets, gather_sim, group_idx, scatter
         # xq is the ascending quantile nodes and af is train output (whole-row
         # NaNs only): the argsort compaction is the identity — skip it
         af_t = interp_grouped_partitioned(
-            sim_q, qtab, af, *brackets, interp, extrapolation, tables_compact=True
+            sim_q, qtab, af, *brackets, interp, extrapolation, tables_compact=True,
+            steps=getattr(brackets, "steps", None),
         )
     return apply_correction(sim, af_t, kind), sim_q
 

@@ -7,6 +7,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..ops.interp import bracket_steps
 from ..utils.container import DataArray
 from ..utils.grouper import GroupIndexes
 from ..utils.tensor import input_tensor
@@ -19,7 +20,10 @@ class Brackets:
     """Bracket partitions of the time axis, as index tensors on one device
     (see ``GroupIndexes.bracket_partitions``).  Unpacks like the 7-tuple
     ``(part0, g0, slot0, part1, g1, slot1, w)``; the second partition is
-    None when the brackets collapse onto one group."""
+    None when the brackets collapse onto one group.  ``steps`` holds blended
+    brackets as the bracketed lookup kernel takes them (``g0``, ``g1`` int32
+    and ``w`` float32: ``ops/interp.py:bracket_steps``), so that an adjust
+    converts nothing."""
 
     part0: torch.Tensor
     g0: torch.Tensor
@@ -28,6 +32,7 @@ class Brackets:
     g1: torch.Tensor | None = None
     slot1: torch.Tensor | None = None
     w: torch.Tensor | None = None
+    steps: tuple | None = None
 
     def __iter__(self):
         return iter((self.part0, self.g0, self.slot0, self.part1, self.g1, self.slot1, self.w))
@@ -53,6 +58,7 @@ def device_brackets(gi: GroupIndexes, method: str = "linear", device=None) -> Br
         idx(b["g1"]),
         idx(b["slot1"]),
         torch.as_tensor(b["w"], device=device),
+        bracket_steps(b["g0"], b["g1"], b["w"], device),
     )
 
 

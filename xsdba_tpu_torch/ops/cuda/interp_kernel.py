@@ -1,4 +1,4 @@
-"""CUDA quantile-table lookup: the kernel of the adjust step.
+"""CUDA quantile-table lookup: the kernels of the adjust step.
 
 ``interp_table_3d(v, xs, ys, nvalid)`` evaluates, for every partition row
 ``(b, g)``, that row's own compacted table at each of the row's values:
@@ -7,26 +7,35 @@ ascending, then a +inf / NaN tail), nvalid [B, Gp] int32 -> [B, Gp, Lp] f32.
 Linear interpolation, constant extrapolation, NaN for an empty table or a
 NaN value.  ``interp_table_2d(v, xs, ys, nvalid)`` is the same lookup with
 one table per row of v [R, L] (xs/ys [R, nq], nvalid [R]), the ungrouped
-adjust's (``ops/interp.py:interp1d_table``).
+adjust's (``ops/interp.py:interp1d_table``).  They replace
+``xsdba_tpu/ops/pallas/interp_kernel.py:interp_table_pallas_3d`` (K1) and
+``interp_table_pallas`` (K2); both launch one kernel, on rows.
 
-They replace ``xsdba_tpu/ops/pallas/interp_kernel.py:interp_table_pallas_3d``
-(K1) and ``interp_table_pallas`` (K2); K2 is K1's kernel on an [R, 1, L]
-view.
-The lookup has to read and write ``v`` once (about 2 x 133 MB per call at
-the [512, 14, 4650] headline partition) against a table of at most 128
-floats per row, so its design keeps each row's table in shared memory and
-streams the row's values through it, with nothing written back but the
-result (``csrc/interp_kernel.cu``).  What bounds it on the card is not those
-bytes but its locate step, a count loop over all nq nodes in shared memory:
-on an H100 80GB HBM3 (700 W limit) it took 0.451 ms at the headline shape,
-591 GB/s of ``v`` read and written.
+``interp_bracketed(v, xs, ys, nvalid, g0, g1, w)`` is the grouped adjust's
+blended lookup in one pass: v [B, T] f32, the cyclically padded compacted
+tables xs/ys [B, Gp, nq] and nvalid [B, Gp], and per time step the two
+bracketing padded groups g0, g1 [T] int32 and the weight w [T] f32 ->
+``fma(1 - w, table_g0(v), w * table_g1(v))`` [B, T].  It stands in for the
+partition route of the reference's ``interp_grouped_partitioned``
+(``xsdba_tpu/ops/interp.py:409``: two partition gathers, two K1 calls, two
+gathers back and the blend), a layout the TPU needed; a site's tables must
+fit :data:`BRACKETED_SMEM_BUDGET` (:func:`bracketed_fits`).
+
+A lookup has to read and write ``v`` once against tables of at most 128
+floats, so the design (``csrc/interp_kernel.cu``) keeps the tables in shared
+memory, locates each value by a branch-free binary search of seven
+unrolled probes, moves long rows in 16-byte loads and stores around a scalar
+head and tail (row starts are not 16-byte aligned), and gives rows of fewer
+than :data:`SHORT_ROW` values a warp each, a value a lane a step.  Its device
+times on an NVIDIA H100 80GB HBM3 (700 W limit) are in ``PERF.md``, section 6.
 
 The source is compiled with ``nvcc`` at the first CUDA call by the port's
 shared build (:mod:`._build`) and bound with ``ctypes``.  Importing this
 module needs neither ``nvcc`` nor a GPU.  A CPU tensor takes the plain twin
-(:func:`interp_table_3d_reference`, :func:`interp_table_2d_reference`); a
-CUDA tensor launches the kernel or raises.  ``launches`` and ``launches_2d``
-count the kernel launches of each wrapper (reset them by assignment).
+(:func:`interp_table_3d_reference`, :func:`interp_table_2d_reference`,
+:func:`interp_bracketed_reference`); a CUDA tensor launches the kernel or
+raises.  ``launches``, ``launches_2d`` and ``launches_bracketed`` count the
+kernel launches of each wrapper (reset them by assignment).
 """
 
 from __future__ import annotations
@@ -35,27 +44,61 @@ import ctypes
 
 import torch
 
+from ...utils.tensor import fma_emulated
 from . import _build
 
 __all__ = [
+    "BRACKETED_SMEM_BUDGET",
     "MAX_NQ",
+    "SHORT_ROW",
+    "bracketed_fits",
+    "bracketed_smem_bytes",
+    "interp_bracketed",
+    "interp_bracketed_reference",
     "interp_table_2d",
     "interp_table_2d_reference",
     "interp_table_3d",
     "interp_table_3d_reference",
     "launches",
     "launches_2d",
+    "launches_bracketed",
 ]
 
 #: kernel launches made by :func:`interp_table_3d` (reset it by assignment)
 launches = 0
 #: kernel launches made by :func:`interp_table_2d` (reset it by assignment)
 launches_2d = 0
+#: kernel launches made by :func:`interp_bracketed` (reset it by assignment)
+launches_bracketed = 0
 
 #: widest table the kernel takes (its shared-memory row, ``kMaxNq`` in the source)
 MAX_NQ = 64
+#: rows of fewer values take one warp each (``kShortRow`` in the source)
+SHORT_ROW = 1024
+#: shared memory a block of the bracketed kernel may use for a site's tables
+#: (``kBracketSmem`` in the source: what a launch gets without opting in)
+BRACKETED_SMEM_BUDGET = 48 * 1024
 _ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p], ctypes.c_int)
-_SIGNATURES = {"xsdba_interp_table_3d": _ARGS, "xsdba_interp_table_2d": _ARGS}
+_SIGNATURES = {
+    "xsdba_interp_table_3d": _ARGS,
+    "xsdba_interp_table_2d": _ARGS,
+    "xsdba_interp_bracketed": ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p], ctypes.c_int),
+}
+
+
+def bracketed_smem_bytes(gp: int) -> int:
+    """Shared memory a block of the bracketed kernel needs for a site's
+    ``gp`` tables, 1056 bytes each whatever their width: 65 (x, y) pairs,
+    129 probe nodes (128 and one to start the tables in different banks),
+    four constants and the valid count (``kTableBytes`` in the source)."""
+    return gp * (16 + 8 * (MAX_NQ + 1) + 4 * (2 * MAX_NQ + 1) + 4)
+
+
+def bracketed_fits(gp: int, nq: int) -> bool:
+    """Whether a site's ``gp`` padded tables of ``nq`` nodes fit the
+    bracketed kernel: 1 <= nq <= ``MAX_NQ`` and within
+    ``BRACKETED_SMEM_BUDGET`` (46 tables)."""
+    return gp >= 1 and 1 <= nq <= MAX_NQ and bracketed_smem_bytes(gp) <= BRACKETED_SMEM_BUDGET
 
 
 def interp_table_3d_reference(v, xs, ys, nvalid):
@@ -132,4 +175,75 @@ def interp_table_2d(v, xs, ys, nvalid):
         return interp_table_2d_reference(v, xs, ys, nvalid)
     out = _launch("xsdba_interp_table_2d", v, xs, ys, nvalid)
     launches_2d += out.numel() > 0
+    return out
+
+
+def interp_bracketed_reference(v, xs, ys, nvalid, g0, g1, w):
+    """The bracketed kernel's plain twin (any device): each time step's value
+    evaluated with ``_interp_unrolled`` against the table of its group, once
+    per bracket, and ``fma(1 - w, val0, w * val1)`` by the exact emulation.
+    A group id outside [0, Gp) has no table and gives NaN."""
+    from ..interp import _interp_unrolled
+
+    def side(grp):
+        out = torch.full_like(v, torch.nan)
+        for g in range(xs.shape[-2]):
+            at = torch.nonzero(grp == g)[:, 0]
+            if at.numel():
+                out[:, at] = _interp_unrolled(v[:, at], xs[:, g], ys[:, g], nvalid[:, g], "linear", "constant")
+        return out
+
+    return fma_emulated(1 - w, side(g0), w * side(g1))
+
+
+def _check_bracketed(v, xs, ys, nvalid, g0, g1, w):
+    if v.ndim != 2:
+        raise ValueError(f"v must be [B, T], got shape {tuple(v.shape)}")
+    B, T = v.shape
+    if xs.ndim != 3 or xs.shape[0] != B or xs.shape != ys.shape:
+        raise ValueError(f"xs/ys must be [B, Gp, nq] matching v, got {tuple(xs.shape)} and {tuple(ys.shape)}")
+    Gp, nq = xs.shape[1:]
+    if tuple(nvalid.shape) != (B, Gp):
+        raise ValueError(f"nvalid must be [B, Gp] = {(B, Gp)}, got {tuple(nvalid.shape)}")
+    if not (tuple(g0.shape) == tuple(g1.shape) == tuple(w.shape) == (T,)):
+        raise ValueError(f"g0, g1 and w must be [T] = {(T,)}, got {tuple(g0.shape)}, {tuple(g1.shape)}, {tuple(w.shape)}")
+    if not bracketed_fits(Gp, nq):
+        raise ValueError(
+            f"{Gp} tables of {nq} nodes need {bracketed_smem_bytes(Gp)} bytes of shared memory, "
+            f"over the {BRACKETED_SMEM_BUDGET} of the bracketed kernel (nq <= {MAX_NQ}); take the partition route"
+        )
+    if not all(t.dtype == torch.float32 for t in (v, xs, ys, w)):
+        raise TypeError(f"v, xs, ys, w must be float32, got {v.dtype}, {xs.dtype}, {ys.dtype}, {w.dtype}")
+    if not all(t.dtype == torch.int32 for t in (nvalid, g0, g1)):
+        raise TypeError(f"nvalid, g0, g1 must be int32, got {nvalid.dtype}, {g0.dtype}, {g1.dtype}")
+    tensors = (v, xs, ys, nvalid, g0, g1, w)
+    if len({t.device for t in tensors}) != 1:
+        raise ValueError("v, the tables and the brackets must lie on one device")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("v, the tables and the brackets must be contiguous")
+    if T >= 2**31 or B >= 2**31:
+        raise ValueError("more sites or time steps than the kernel indexes")
+    if v.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no lookup kernel for device {v.device}")
+
+
+def interp_bracketed(v, xs, ys, nvalid, g0, g1, w):
+    """Blended bracket lookup: v [B, T]; xs/ys [B, Gp, nq] cyclically padded
+    compacted tables; nvalid [B, Gp] int32; g0, g1 [T] int32 padded group
+    ids; w [T] -> ``fma(1 - w, table_g0(v), w * table_g1(v))`` [B, T]."""
+    global launches_bracketed
+    _check_bracketed(v, xs, ys, nvalid, g0, g1, w)
+    if v.device.type == "cpu":
+        return interp_bracketed_reference(v, xs, ys, nvalid, g0, g1, w)
+    out = torch.empty_like(v)
+    if out.numel() == 0:
+        return out
+    stream = torch.cuda.current_stream(v.device).cuda_stream
+    rc = _build.library("interp_kernel", _SIGNATURES).xsdba_interp_bracketed(
+        v.data_ptr(), xs.data_ptr(), ys.data_ptr(), nvalid.data_ptr(), g0.data_ptr(), g1.data_ptr(), w.data_ptr(),
+        out.data_ptr(), v.shape[0], v.shape[1], xs.shape[1], xs.shape[2], v.device.index, stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"xsdba_interp_bracketed kernel launch failed: cudaError {rc}")
+    launches_bracketed += 1
     return out

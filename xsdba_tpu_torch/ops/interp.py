@@ -10,11 +10,17 @@ Replaces the reference's ``interp_on_quantiles`` (``utils.py:317-513``):
 
 The plain form locates each value by summed comparisons over the (small,
 static) quantile axis and selects the bracketing nodes by masked
-accumulation (:func:`_interp_unrolled`).  The grouped lookup runs on static
-bracket partitions of the time axis: every partition row is evaluated against
-its own table, and on a CUDA tensor (linear, constant extrapolation, f32,
-nq <= 64) that evaluation is the hand-written kernel of
-``ops/cuda/interp_kernel.py``.
+accumulation (:func:`_interp_unrolled`).  The grouped lookup has three
+routes (:func:`lookup_route`), chosen by shape, dtype and device alone.  Linear,
+constant-extrapolated f32 tables of at most 64 nodes go to the hand-written
+kernels of ``ops/cuda/interp_kernel.py``: on a CUDA tensor with blended
+brackets and a site's padded tables within the kernel's shared-memory budget
+(monthly and seasonal groups) one *bracketed* launch looks each value up in
+its two bracketing groups' tables and blends; otherwise (collapsed brackets,
+dayofyear's 367 tables a site, every CPU tensor) the lookup runs on static
+bracket *partitions* of the time axis, every partition row evaluated against
+its own table by the 3-D lookup (its kernel on a CUDA tensor, its plain twin
+on a CPU tensor).  Everything else evaluates the partitions plainly.
 
 The grouped case is *separable*: evaluate the 1-D interpolant of the two
 groups bracketing each timestep's cyclic fractional index and blend linearly
@@ -29,14 +35,17 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..utils.tensor import as_tensor, fma
+from ..utils.tensor import as_tensor
+from .cuda.fma_kernel import fma
 from .cuda.interp_kernel import MAX_NQ as KERNEL_MAX_NQ
-from .cuda.interp_kernel import interp_table_2d, interp_table_3d
+from .cuda.interp_kernel import bracketed_fits, interp_bracketed, interp_table_2d, interp_table_3d
 
 __all__ = [
+    "bracket_steps",
     "interp1d_table",
     "interp_grouped_partitioned",
     "interp_on_quantiles_reference",
+    "lookup_route",
     "searchsorted_batched",
 ]
 
@@ -233,33 +242,68 @@ def _pad_cyclic_tables(xq, yq, tables_compact: bool = False):
     return xq, yq, nvalid
 
 
-def _uses_kernel(vals, xqs, yqs, method: str, extrap: str) -> bool:
-    """The lookup kernel's wrapper serves linear/constant f32 tables of at
-    most ``KERNEL_MAX_NQ`` nodes: it launches the CUDA kernel on a CUDA
-    tensor and runs the kernel's plain twin on a CPU tensor.  Everything else
-    is plain."""
+def _served(device_type: str, dtype, nq: int, method: str, extrap: str) -> bool:
+    """Whether the kernels' wrappers serve such a lookup: linear, constant
+    extrapolation, float32 tables of at most ``KERNEL_MAX_NQ`` nodes, on the
+    CPU (their plain twins) or CUDA."""
     return (
-        vals.device.type in ("cpu", "cuda")
+        device_type in ("cpu", "cuda")
         and method == "linear"
         and extrap == "constant"
-        and 0 < xqs.shape[-1] <= KERNEL_MAX_NQ
-        and vals.dtype == xqs.dtype == yqs.dtype == torch.float32
+        and 0 < nq <= KERNEL_MAX_NQ
+        and dtype == torch.float32
     )
+
+
+def lookup_route(device_type: str, dtype, nq: int, gp: int, blended: bool, method: str, extrap: str) -> str:
+    """The route of a lookup in ``gp`` (padded) tables of ``nq`` nodes a site,
+    a function of shapes, dtype and device alone:
+
+    - ``"plain"``: :func:`_interp_unrolled`; everything the kernels' wrappers
+      do not serve (:func:`_served`);
+    - ``"bracketed"``: one launch of the bracketed kernel, for a CUDA tensor
+      with blended brackets whose tables fit its shared-memory budget;
+    - ``"partition"``: the 3-D (or 2-D) lookup's wrapper on partition rows,
+      which launches its kernel on a CUDA tensor and runs the kernel's plain
+      twin on a CPU tensor.
+    """
+    if not _served(device_type, dtype, nq, method, extrap):
+        return "plain"
+    if device_type == "cuda" and blended and bracketed_fits(gp, nq):
+        return "bracketed"
+    return "partition"
+
+
+def _uses_kernel(vals, xqs, yqs, method: str, extrap: str) -> bool:
+    """Whether the row lookups' wrappers serve these tensors."""
+    return vals.dtype == xqs.dtype == yqs.dtype and _served(vals.device.type, vals.dtype, xqs.shape[-1], method, extrap)
+
+
+def bracket_steps(g0, g1, w, device=None):
+    """The per-time-step brackets as the bracketed kernel takes them: padded
+    group ids ``g0``, ``g1`` [T] as contiguous int32 and the weight ``w`` [T]
+    as contiguous float32, on ``device``."""
+    step = lambda a, dtype: as_tensor(a, dtype=dtype, device=device).contiguous()  # noqa: E731
+    return step(g0, torch.int32), step(g1, torch.int32), step(w, torch.float32)
+
+
+def _flat_tables(lead, xqs, yqs, nvs):
+    """Tables xqs/yqs [..., Gs, nq] and counts nvs [..., Gs] broadcast to the
+    leading dims ``lead`` and flattened to [B, Gs, nq] and int32 [B, Gs]."""
+    Gs, nq = xqs.shape[-2:]
+    B = int(np.prod(lead, dtype=np.int64))
+    x3 = xqs.expand(lead + (Gs, nq)).reshape(B, Gs, nq).contiguous()
+    y3 = yqs.expand(lead + (Gs, nq)).reshape(B, Gs, nq).contiguous()
+    return x3, y3, nvs.expand(lead + (Gs,)).reshape(B, Gs).to(torch.int32).contiguous()
 
 
 def _eval_tables(vals, xqs, yqs, nvs, method: str, extrap: str):
     """Evaluate partition rows vals [..., Gs, Lp] against their own tables
     xqs/yqs [..., Gs, nq] (nvs [..., Gs])."""
-    nq = xqs.shape[-1]
     if not _uses_kernel(vals, xqs, yqs, method, extrap):
         return _interp_unrolled(vals, xqs, yqs, nvs, method, extrap)
-    lead = vals.shape[:-2]
-    Gs, Lp = vals.shape[-2:]
-    B = int(np.prod(lead, dtype=np.int64))
-    v3 = vals.reshape(B, Gs, Lp).contiguous()
-    x3 = xqs.expand(lead + (Gs, nq)).reshape(B, Gs, nq).contiguous()
-    y3 = yqs.expand(lead + (Gs, nq)).reshape(B, Gs, nq).contiguous()
-    n3 = nvs.expand(lead + (Gs,)).reshape(B, Gs).to(torch.int32).contiguous()
+    x3, y3, n3 = _flat_tables(vals.shape[:-2], xqs, yqs, nvs)
+    v3 = vals.reshape((x3.shape[0],) + vals.shape[-2:]).contiguous()
     return interp_table_3d(v3, x3, y3, n3).reshape(vals.shape)
 
 
@@ -277,16 +321,24 @@ def interp_grouped_partitioned(
     method: str = "linear",
     extrap: str = "constant",
     tables_compact: bool = False,
+    steps=None,
 ):
-    """Grouped table lookup via static bracketing partitions.
+    """Grouped table lookup: each value in the tables of its time step's two
+    bracketing padded groups, blended as ``fma(1 - w, val0, w * val1)``
+    (rounded once, as the reference's compiled adjust rounds it).
 
     The caller has ``GroupIndexes.bracket_partitions``: the time axis is
     partitioned by bracketing padded group (``part0/part1`` [Gp, Lp],
     -1-padded), each partition row is evaluated against its *own* table in
-    one batched call,
-    and results scatter back through long-axis gathers.  Work is 2·nq·T
-    regardless of the group count.  ``part1`` None means collapsed brackets
-    (nearest method / integer indexes): one partition, no blend.
+    one batched call, and results scatter back through long-axis gathers.
+    Work is 2·nq·T regardless of the group count.  ``part1`` None means
+    collapsed brackets (nearest method / integer indexes): one partition, no
+    blend.  On a CUDA tensor whose route is ``"bracketed"``
+    (:func:`lookup_route`) the partitions are not used: one kernel launch
+    takes ``g0``, ``g1`` and ``w`` [T] and does both lookups and the blend,
+    reading ``v`` once.  ``steps`` is that triple ready for the kernel
+    (:func:`bracket_steps` on ``v``'s device, as ``Brackets.steps`` keeps
+    it); without it the three are converted on every call.
 
     ``tables_compact``: the tables are quantile-trained (ascending, NaN rows
     whole) — skip the argsort-based NaN compaction (bit-identical there;
@@ -295,6 +347,13 @@ def interp_grouped_partitioned(
     v = as_tensor(v)
     xq_p, yq_p, nv_p = _pad_cyclic_tables(as_tensor(xq, device=v.device), as_tensor(yq, device=v.device), tables_compact)
     T = v.shape[-1]
+    Gp, nq = xq_p.shape[-2:]
+    one_dtype = v.dtype == xq_p.dtype == yq_p.dtype
+    if one_dtype and lookup_route(v.device.type, v.dtype, nq, Gp, part1 is not None, method, extrap) == "bracketed":
+        x3, y3, n3 = _flat_tables(v.shape[:-1], xq_p, yq_p, nv_p)
+        if steps is None or steps[0].device != v.device:
+            steps = bracket_steps(g0, g1, w, v.device)
+        return interp_bracketed(v.reshape(-1, T).contiguous(), x3, y3, n3, *steps).reshape(v.shape)
 
     def eval_partition(part, grp, slot):
         pi = as_tensor(part, device=v.device).long()
@@ -307,7 +366,7 @@ def interp_grouped_partitioned(
         return val0
     val1 = eval_partition(part1, g1, slot1)
     ww = as_tensor(w, dtype=v.dtype, device=v.device)
-    return (1 - ww) * val0 + ww * val1
+    return fma(1 - ww, val0, ww * val1)
 
 
 # ---------------------------------------------------------------------------

@@ -17,7 +17,8 @@ import weakref
 import numpy as np
 import torch
 
-from ..utils.tensor import as_tensor, fma
+from ..utils.tensor import as_tensor
+from .cuda.fma_kernel import fma
 
 __all__ = [
     "grouped_nan_quantile",

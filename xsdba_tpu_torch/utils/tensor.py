@@ -14,7 +14,7 @@ import torch
 __all__ = [
     "as_tensor",
     "default_device",
-    "fma",
+    "fma_emulated",
     "input_tensor",
     "nanmax",
     "nanmin",
@@ -89,17 +89,18 @@ def _round_to_odd(s, e):
     return torch.where(inexact_even, torch.nextafter(s, e * torch.inf), s)
 
 
-def fma(a, b, c) -> torch.Tensor:
-    """``a * b + c`` rounded once, for float32 or float64 tensors.
+def fma_emulated(a, b, c) -> torch.Tensor:
+    """``a * b + c`` rounded once, in plain tensor operations on any device,
+    for float32 or float64 tensors of one dtype that broadcast against each
+    other: the CPU path of ``ops/cuda/fma_kernel.py:fma`` and the plain twin
+    of its CUDA kernel.
 
-    The JAX package's compiled programs contract ``x * y + z`` into fused
-    multiply-adds on the CPU (its quantile virtual index and lerp, its
-    table-lookup blend), so the port rounds those once too, on every
-    device.  Float32 goes through float64, where the product is exact and
-    the sum, rounded to odd, rounds to float32 as the fused result would;
-    float64 uses Boldo and Melquiond's emulation through rounding to odd,
-    and a non-finite result there takes the plain expression, which agrees
-    with it."""
+    Float32 goes through float64, where the product is exact and the sum,
+    rounded to odd, rounds to float32 as the fused result would; float64
+    uses Boldo and Melquiond's emulation through rounding to odd (exact
+    while ``a * b`` neither overflows nor falls under 2^-969, where the
+    product's error term leaves the float64 range), and a non-finite result
+    there takes the plain expression."""
     if a.dtype == torch.float32:
         return _round_to_odd(*_two_sum(a.double() * b.double(), c.double())).float()
     uh, ul = _two_prod(a, b)
