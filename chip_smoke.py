@@ -35,7 +35,11 @@ Phases, each reported on lines of its own:
    printing the keys that differ under ``==`` and whether the (key,
    payload) multisets are equal; and the second variants of the level
    build (merging in device memory) and of the fold (its merge buffer in
-   the output row) at f64, window 31 and 900 values a row (m = 1024);
+   the output row) at f64, window 31 and 900 values a row (m = 1024); the
+   lookup's ``nearest`` method (K1 and K2) on every lookup case above and,
+   with rank-like values in [0, 1] (exact 0 and 1, ties half way between
+   nodes), at the two MBCn shapes ([192, 10950] nq 50 and
+   [143616, 930] nq 20), under ``==``;
 4. main path: ``QuantileDeltaMapping.train(...).adjust(...)`` on CUDA
    tensors of 512 sites x 150 noleap years, f32, ``nquantiles=50``,
    monthly groups; finite, its adjust one launch of the bracketed lookup
@@ -57,6 +61,24 @@ Phases, each reported on lines of its own:
    the first 4 sites to the port's CPU path and to the re-sort oracle;
    again on a NaN-masked copy (2 sites all NaN, 10 % of the values of 4
    more NaN), first 8 sites;
+   5c. multivariate (numpy inputs, so on the card): MBCn-a, ``bench.py``'s
+   workload (64 sites x 3 variables x 30 noleap years, N(10, 3) f32 from
+   numpy seeds 1 and 2, ``group="time"``, nq 50, 20 rotations,
+   ``n_escore=-1``), and MBCn-b, the documented usage at a width that fills
+   the card (256 sites, ``Grouper("time.dayofyear", window=31)``, nq 20: two
+   chunks of group blocks): public ``MBCn.train`` then ``.adjust``; finite,
+   K2 launched ``n_iter`` times a chunk by train and ``n_iter + V`` times a
+   chunk by adjust (asserted), ``fma`` launched, no other kernel of the
+   port; against the port's CPU path with the card's rotations injected on
+   the first sites: ``af_q`` within 5e-5 over the first 3 iterations, and
+   the share of (site, block) trajectories that stay within 5e-5 through
+   all 20 (float32 states part when an ulp moves a rank across a node of
+   the nearest lookup); every ``scen`` value is exactly one of its block's
+   univariate QDM values (``group="time"``: each variable's series is a
+   permutation of its QDM series, and its multiset equals the CPU port's);
+   then a small ``NpdfTransform`` (8 sites x 2000 days, monthly QDM base,
+   ``n_escore=0``: K1 with ``nearest``) and ``Scaling`` / ``LOCI`` at 512
+   sites x 150 yr, monthly, linear, against the CPU port;
 6. times (2 warm-ups, median of 5 and the spread): the fused QDM, windowed
    EQM (merge) and selection steps in gridpoint-years/s (CUDA events), the
    public calls on the same data (host clock), each kernel against its twin
@@ -68,9 +90,12 @@ Phases, each reported on lines of its own:
    levels; fma's is ``torch.addcmul``), K1 also on the monthly
    partition's long rows, fma also on same-shape operands and in float64,
    K3's long-row variant at m = 2048, the peak device memory of
-   the heavy and selection steps and of the heavy public call, and for each
-   fused step the five kernels that take the most device time plus the
-   port's own kernels (``torch.profiler``).
+   the heavy and selection steps and of the heavy public call, the MBCn-a
+   and MBCn-b train steps (``_mbcn_train_block``; MBCn-b's on its first
+   chunk of blocks) in training iterations/s with their peak memory, the
+   lookup's ``nearest`` method beside ``linear`` on the same inputs, and for
+   each fused step the five kernels that take the most device time plus
+   the port's own kernels (``torch.profiler``).
 
 Each path's kernel launches are counted from 0 just before it runs and read
 just after; launches made to compare a kernel with its twin do not count.
@@ -80,7 +105,10 @@ The line before the last is one JSON object describing the kernels (K1's
 launches and shape are the heavy path's windowed adjust, K2's the
 ``group="time"`` path's, K3, K5 and K6's the heavy path's, K4's the
 window-5 path's, K7's the selection path's, the bracketed lookup's the QDM
-path's, fma's the heavy path's, at its extraction's broadcast lerp), each
+path's, fma's the heavy path's, at its extraction's broadcast lerp; the
+``nearest`` rows: K2's launches and shape are MBCn-b's, K1's launches the
+small NpdfTransform's and its timed shape the windowed adjust's, the same
+as its ``linear`` row), each
 with its least possible time on an H100 (``bound_ms``: the
 larger of its bytes over 3.35 TB/s and its operations over 67 TFLOP/s); the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device the
@@ -100,12 +128,14 @@ import torch
 
 import xsdba_tpu_torch as xp
 from xsdba_tpu_torch.models._algos import eqm_train_adjust_windowed, eqm_train_from_raw, qdm_train_adjust_core, qm_adjust_core
+from xsdba_tpu_torch.models import mbcn
 from xsdba_tpu_torch.models._wrap import device_brackets
 from xsdba_tpu_torch.ops import merge, sort
 from xsdba_tpu_torch.ops.correction import equally_spaced_nodes
 from xsdba_tpu_torch.ops.cuda import _build, fma_kernel, interp_kernel
 from xsdba_tpu_torch.ops.interp import _compact_nan_pairs
 from xsdba_tpu_torch.ops.quantile import merge_slab
+from xsdba_tpu_torch.ops.rotation import rand_rot_matrix
 from xsdba_tpu_torch.ops.selquant import plan_labels
 
 N_SITES, N_YEARS, NQ = 512, 150, 50
@@ -117,6 +147,13 @@ SMALL_WINDOW = 5
 # nq = 50 (2 * S * 365 * 101 * 128 <= 2^31), a multiple of 8
 SEL_SITES, SEL_CHECK, SEL_NAN_CHECK = 224, 4, 8
 TOL = dict(rtol=2e-6, atol=2e-6)
+# the multivariate paths: bench.py's MBCn workload (a) and the documented
+# dayofyear usage at a width that fills the card (b)
+MBCN_VARS, MBCN_YEARS, MBCN_ITERS = 3, 30, 20
+MBCN_A = dict(sites=64, group=("time", 1), nq=50, check=8)
+MBCN_B = dict(sites=256, group=("time.dayofyear", 31), nq=20, check=2)
+MBCN_AF_TOL, MBCN_FIRST = 5e-5, 3
+NPDF_SITES, NPDF_DAYS, NPDF_ITERS = 8, 2000, 5
 # H100 SXM peaks: HBM bytes/s, float32 FLOP/s
 PEAK_BYTES, PEAK_OPS = 3.35e12, 67e12
 # a kernel's time: the mean of KERNEL_BATCH back-to-back calls, queued
@@ -137,6 +174,9 @@ KERNELS = {
     "bracketed": dict(name="interp_bracketed", route="cuda", source=_SRC + "interp_kernel.cu", replaces="xsdba_tpu/ops/interp.py:409"),
     "fma": dict(name="fma", route="cuda", source=_SRC + "fma_kernel.cu",
                 replaces="xsdba_tpu/ops/quantile.py:35 (x * y + z as XLA contracts it in the compiled programs)"),
+    # the row lookups' second method: the same kernel, no Pallas kernel serves it in the reference
+    "K1 nearest": dict(name="interp_table_3d[nearest]", route="cuda", source=_SRC + "interp_kernel.cu", replaces=_PALLAS + "interp_kernel.py:101"),
+    "K2 nearest": dict(name="interp_table_2d[nearest]", route="cuda", source=_SRC + "interp_kernel.cu", replaces=_PALLAS + "interp_kernel.py:141"),
 }
 
 
@@ -177,6 +217,29 @@ def lookup_inputs(B, Gp, Lp, nq, seed=0, device="cpu", extra=False):
     v[single, ::7] = xs[single, :1].numpy()             # exactly on the single node
     shape = lambda a, *tail: a.reshape(B, Gp, *tail).contiguous().to(device)  # noqa: E731
     return shape(torch.from_numpy(v), Lp), shape(xs, nq), shape(ys, nq), shape(nv.to(torch.int32))
+
+
+def rank_lookup_inputs(R, L, nq, seed=0, device="cpu"):
+    """The multivariate path's lookup inputs: ``R`` rows of ``L`` rank-like
+    f32 values in [0, 1] (each row a permutation of k / (L - 1), so exactly
+    0 and 1 occur, the permutations repeating after 2048 rows; every 13th
+    value half way between two nodes, a tie; 1 % NaN) against ``equally_spaced_nodes(nq)`` with factors ~ N(0, 1).
+    Returns (v [R, L], xs [R, nq], ys [R, nq], nvalid [R] int32)."""
+    rng = np.random.default_rng(seed)
+    nodes = equally_spaced_nodes(nq).astype(np.float32)
+    base = min(R, 2048)   # distinct permutations; further rows repeat them against their own factors
+    v = (rng.permuted(np.tile(np.arange(L, dtype=np.float64), (base, 1)), axis=1) / max(L - 1, 1)).astype(np.float32)
+    v = v[np.arange(R) % base]
+    if nq > 1:
+        mid = (nodes[:-1] + nodes[1:]) / 2
+        v[:, 5::13] = mid[rng.integers(0, nq - 1, v[:, 5::13].shape)]
+    v[:, 0], v[:, -1] = 0.0, 1.0
+    v[rng.random((R, L)) < 0.01] = np.nan
+    v[0, 0], v[0, -1] = 0.0, 1.0
+    xs = np.tile(nodes, (R, 1))
+    ys = rng.normal(0, 1, (R, nq)).astype(np.float32)
+    nv = np.full(R, nq, np.int32)
+    return tuple(torch.from_numpy(a).to(device) for a in (v, xs, ys, nv))
 
 
 def bracket_inputs(B, Gp, nq, g0, g1, w, seed=0, device="cpu", extra=False):
@@ -260,6 +323,105 @@ def resort_oracle(ref, hist, sim, t, window=HEAVY_WINDOW):
     q = torch.as_tensor(equally_spaced_nodes(NQ), dtype=ref.dtype, device=ref.device)
     af, hist_q = eqm_train_from_raw(ref, hist, torch.as_tensor(gi.gather_idx, device=ref.device), q, kind="+")
     return qm_adjust_core(sim, hist_q, af, device_brackets(gi, "linear", ref.device), kind="+", interp="linear", extrapolation="constant", tables_compact=True)
+
+
+def mbcn_problem(n_sites):
+    """``bench.py``'s MBCn data (``bench.py:221-238``): [site, multivar,
+    time] f32 ~ N(10, 3) over 30 noleap years, ref from numpy seed 1, hist
+    from seed 2 (and sim from seed 3, thirty years on), as numpy-backed
+    DataArrays."""
+    T = 365 * MBCN_YEARS
+    mv = np.array(["tasmax", "pr", "huss"])
+
+    def mk(seed, start):
+        t = xp.date_range(start, periods=T, freq="D", calendar="noleap")
+        x = np.random.default_rng(seed).normal(10, 3, (n_sites, MBCN_VARS, T)).astype(np.float32)
+        return xp.DataArray(x, ("site", "multivar", "time"), {"time": t, "multivar": mv, "site": np.arange(n_sites)}, {"units": ""}, "data")
+
+    return mk(1, "1981-01-01"), mk(2, "1981-01-01"), mk(3, "2011-01-01")
+
+
+def run_mbcn(ref, hist, sim, group, nq, rot=None):
+    """The public MBCn path: train, then adjust.  Returns (trained, scen)."""
+    obj = xp.MBCn.train(ref, hist, base_kws={"nquantiles": nq, "group": xp.Grouper(*group)}, n_iter=MBCN_ITERS, n_escore=-1, rot_matrices=rot)
+    return obj, obj.adjust(sim, ref, hist)
+
+
+def mbcn_chunks(n_sites, group):
+    """(chunks of group blocks, blocks, block width, blocks a chunk) of an
+    MBCn call."""
+    G, Lw = xp.Grouper(*group).indexes(xp.date_range("1981-01-01", periods=365 * MBCN_YEARS, freq="D", calendar="noleap")).gather_idx.shape
+    chunk = mbcn._chunk_size(G, n_sites * MBCN_VARS, Lw)
+    return -(-G // chunk), G, Lw, chunk
+
+
+def first_sites(da, n):
+    return xp.DataArray(da.data[:n], da.dims, {**da.coords, "site": np.arange(n)}, dict(da.attrs), da.name)
+
+
+def univariate_blocks(ref, hist, sim, group, nq, n):
+    """The per-block univariate QDM output of the first ``n`` sites, on the
+    card: [V, n, G, Lw] (what MBCn's adjust reorders), and sim's group
+    indexes."""
+    gi, gi_sim = (xp.Grouper(*group).indexes(d.coords["time"]) for d in (ref, sim))
+    dev = torch.device("cuda", 0)
+    rows_ref, rows_sim = (torch.as_tensor(g.gather_idx, device=dev) for g in (gi, gi_sim))
+    kws, adj = {"nquantiles": nq}, {"interp": "nearest", "extrapolation": "constant"}
+    lay = lambda d: torch.from_numpy(np.moveaxis(d.data[:n], 1, 0).copy()).to(dev)   # noqa: E731  [V, n, T]
+    r, h, s = lay(ref), lay(hist), lay(sim)
+    return torch.stack([mbcn._per_block_univariate(r[iv], h[iv], s[iv], rows_ref, rows_sim, kws, adj) for iv in range(MBCN_VARS)]), gi_sim
+
+
+def check_mbcn(tag, cfg, ref, hist, sim, obj, scen, counts):
+    """The gates of an MBCn run on the card (see the module docstring, 5c);
+    returns the line to print."""
+    S, group, nq, n = cfg["sites"], cfg["group"], cfg["nq"], cfg["check"]
+    T = 365 * MBCN_YEARS
+    n_chunks, G, Lw, _ = mbcn_chunks(S, group)
+    data = scen.data
+    assert data.is_cuda and data.dtype == torch.float32 and tuple(data.shape) == (S, MBCN_VARS, T), (data.device, data.dtype, tuple(data.shape))
+    assert bool(torch.isfinite(data).all()) and bool(torch.isfinite(obj.ds["af_q"].data).all()), f"{tag}: non-finite output"
+    want_2d = n_chunks * (MBCN_ITERS + MBCN_ITERS + MBCN_VARS)   # train: n_iter a chunk; adjust: n_iter + V a chunk
+    assert counts["interp_table_2d"] == want_2d, f"{tag}: K2 launched {counts['interp_table_2d']} times, {want_2d} expected"
+    assert counts["fma"] >= 1, f"{tag}: launches {counts}"
+    others = [k for k in counts if k not in ("interp_table_2d", "fma") and counts[k]]
+    assert not others, f"{tag}: another kernel of the port ran: {counts}"
+    # every scen value is one of its block's univariate QDM values, exactly
+    blocks, gi_sim = univariate_blocks(ref, hist, sim, group, nq, n)                  # [V, n, G, Lw]
+    got = data[:n].movedim(1, 0)                                                       # [V, n, T]
+    if G == 1:
+        uni = blocks[:, :, 0, :]
+        assert torch.equal(torch.sort(got, dim=-1).values, torch.sort(uni, dim=-1).values), f"{tag}: scen is not a permutation of the univariate QDM series"
+        moved = float((got != uni).float().mean())
+    else:
+        ordered = torch.sort(torch.nan_to_num(blocks, nan=float("inf")), dim=-1).values
+        mine = ordered[:, :, torch.as_tensor(gi_sim.group_idx, device=data.device).long(), :]   # [V, n, T, Lw]
+        at = torch.searchsorted(mine, got[..., None].contiguous()).clamp_(max=Lw - 1)
+        assert bool((torch.gather(mine, -1, at)[..., 0] == got).all()), f"{tag}: a scen value is not among its block's univariate QDM values"
+        centre = blocks[:, :, torch.as_tensor(gi_sim.group_idx, device=data.device).long(), torch.as_tensor(gi_sim.scatter_slot, device=data.device).long()]
+        moved = float((got != centre).float().mean())
+        del ordered, mine, at, centre
+    # the port's CPU path on the first sites, the card's rotations injected
+    rot = obj.ds["rot_matrices"].data.cpu()
+    with xp.set_options(device="cpu"):
+        cpu_obj, cpu_scen = run_mbcn(*(first_sites(d, n) for d in (ref, hist, sim)), group, nq, rot=rot)
+    d_af = (obj.ds["af_q"].data[:n].cpu() - cpu_obj.ds["af_q"].data).abs().amax(dim=(-1, -2))     # [n, G, I]
+    assert float(d_af[..., 0].max()) <= MBCN_AF_TOL, f"{tag}: af_q differs from the CPU port by {float(d_af[..., 0].max()):.3g} in the first iteration"
+    early = float((d_af[..., :MBCN_FIRST] <= MBCN_AF_TOL).all(dim=-1).float().mean())
+    assert early >= 0.5, f"{tag}: only {100 * early:.1f} % of the trajectories stay within {MBCN_AF_TOL:g} of the CPU port over the first {MBCN_FIRST} iterations"
+    scale = float(cpu_obj.ds["af_q"].data.abs().max())
+    assert float(d_af.max()) <= scale, f"{tag}: af_q differs from the CPU port by {float(d_af.max()):.3g}, more than the factors' own size {scale:.3g}"
+    together = float((d_af <= MBCN_AF_TOL).all(dim=-1).float().mean())
+    by_iter = [float(x) for x in d_af.amax(dim=(0, 1))]
+    same = float((data[:n].cpu() == cpu_scen.data).float().mean())
+    if G == 1:
+        assert torch.equal(torch.sort(data[:n].cpu(), dim=-1).values, torch.sort(cpu_scen.data, dim=-1).values), f"{tag}: scen's values differ from the CPU port's"
+    return (f"finite, launches {counts} (K2: {n_chunks} chunk(s) x (2 x {MBCN_ITERS} + {MBCN_VARS})); first {n} sites vs the CPU port with the same rotations: "
+            f"af_q max abs diff {float(d_af[..., 0].max()):.3g} in the first iteration, {100 * early:.1f} % of the trajectories within {MBCN_AF_TOL:g} over the first "
+            f"{MBCN_FIRST}, {float(d_af.max()):.3g} over all {MBCN_ITERS} "
+            f"(factors up to {scale:.3g}; by iteration {' '.join(f'{x:.1e}' for x in by_iter)}); "
+            f"{100 * together:.1f} % of {d_af.shape[0] * d_af.shape[1]} (site, block) trajectories within {MBCN_AF_TOL:g} throughout; scen: every value one of its block's "
+            f"univariate QDM values ({100 * moved:.1f} % of the positions reordered), {100 * same:.2f} % of the positions equal to the CPU port's")
 
 
 def nan_masked(arrays, seed=2):
@@ -506,16 +668,33 @@ def main() -> int:
     lookup_short_twin = lambda: interp_kernel.interp_table_3d_reference(vh, xsh, ysh, nvh)  # noqa: E731
     _hold(err, "K1", f"K1 lookup, short rows nq={NQ}", *k1, vh, xsh, ysh, nvh)
     _hold(err, "K1", f"K1 lookup, short rows, the search's edges nq={NQ}", *k1, *lookup_inputs(16, hgp, hlp, NQ, seed=5, device=dev, extra=True))
+    # the nearest method on the same cases: the same kernel, the same twin
+    _hold(err, "K1 nearest", f"K1 nearest lookup nq={NQ}", *k1, v, xs, ys, nv, "nearest")
+    _hold(err, "K2 nearest", f"K2 nearest row lookup nq={NQ}", *k2, v2, xs2, ys2, nv2, "nearest")
+    _hold(err, "K1 nearest", f"K1 nearest lookup, short rows nq={NQ}", *k1, vh, xsh, ysh, nvh, "nearest")
+    _hold(err, "K1 nearest", f"K1 nearest lookup, short rows, the search's edges nq={NQ}", *k1, *lookup_inputs(16, hgp, hlp, NQ, seed=5, device=dev, extra=True), "nearest")
     short = interp_kernel.SHORT_ROW
-    for B, gp, lp, nq in ((7, 3, 1, 1), (5, 4, 3, 2), (3, 5, 150, 64), (3, 5, short - 1, 50), (3, 5, short, 2), (2, 3, short + 1, 64), (2, 3, 4650, 1)):
+    for B, gp, lp, nq in ((7, 3, 1, 1), (5, 4, 3, 2), (3, 5, 150, 64), (3, 5, short - 1, 50), (3, 5, short, 2), (2, 3, short + 1, 64), (4, 6, 700, 20), (2, 3, 4650, 1)):
         edges = lookup_inputs(B, gp, lp, nq, seed=lp + nq, device=dev, extra=True)
+        rows = tuple(a.reshape((B * gp,) + a.shape[2:]) for a in edges)
         _hold(err, "K1", f"K1 lookup nq={nq}", *k1, *edges)
-        _hold(err, "K2", f"K2 row lookup nq={nq}", *k2, *(a.reshape((B * gp,) + a.shape[2:]) for a in edges))
+        _hold(err, "K2", f"K2 row lookup nq={nq}", *k2, *rows)
+        _hold(err, "K1 nearest", f"K1 nearest lookup nq={nq}", *k1, *edges, "nearest")
+        _hold(err, "K2 nearest", f"K2 nearest row lookup nq={nq}", *k2, *rows, "nearest")
+    # rank-like values in [0, 1] at the two MBCn shapes (a: long rows, b: a warp a row)
+    rank_a = rank_lookup_inputs(MBCN_A["sites"] * MBCN_VARS, 365 * MBCN_YEARS, MBCN_A["nq"], seed=11, device=dev)
+    b_chunks, b_blocks, b_width, b_chunk = mbcn_chunks(MBCN_B["sites"], MBCN_B["group"])
+    assert (b_chunks, b_blocks, b_width, b_chunk) == (2, 365, 930, 187), (b_chunks, b_blocks, b_width, b_chunk)   # two chunks, the second shorter
+    rank_b = rank_lookup_inputs(MBCN_B["sites"] * MBCN_VARS * b_chunk, b_width, MBCN_B["nq"], seed=12, device=dev)
+    for tag, args in (("MBCn-a", rank_a), ("MBCn-b", rank_b)):
+        _hold(err, "K2 nearest", f"K2 nearest row lookup, ranks, {tag} nq={args[1].shape[-1]}", *k2, *args, "nearest")
+        _hold(err, "K2", f"K2 row lookup, ranks, {tag} nq={args[1].shape[-1]}", *k2, *args)
     ve = edges[0]
     off = torch.cat([ve.new_zeros(1), ve.reshape(-1)])[1:].reshape(ve.shape)  # contiguous, 4 bytes off a 16-byte boundary
     assert off.is_contiguous() and off.data_ptr() % 16 == 4
     err["K1"] = max(err["K1"], _compare("K1 lookup, values off 16 bytes", k1[0](off, *edges[1:]), k1[1](*edges)))
-    del off, ve, edges
+    err["K1 nearest"] = max(err["K1 nearest"], _compare("K1 nearest lookup, values off 16 bytes", k1[0](off, *edges[1:], "nearest"), k1[1](*edges, "nearest")))
+    del off, ve, edges, rows
 
     # the bracketed lookup at the headline shape with the monthly brackets
     # (also with the search's edges), and at a small odd shape with random
@@ -731,7 +910,87 @@ def main() -> int:
                   f"oracle (max abs diff {_max_abs(got, oracle):.3g})", flush=True)
             del sscen
 
+    # 5c. the multivariate schemes through the public calls, on numpy inputs
+    mb_counts, mb_train_counts = {}, {}
+    for tag, cfg in (("MBCn-a", MBCN_A), ("MBCn-b", MBCN_B)):
+        mref, mhist, msim = mbcn_problem(cfg["sites"])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        _reset_counts()
+        t0 = time.perf_counter()
+        obj = xp.MBCn.train(mref, mhist, base_kws={"nquantiles": cfg["nq"], "group": xp.Grouper(*cfg["group"])}, n_iter=MBCN_ITERS, n_escore=-1)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        mb_train_counts[tag] = _counts()
+        n_chunks = mbcn_chunks(cfg["sites"], cfg["group"])[0]
+        assert mb_train_counts[tag]["interp_table_2d"] == n_chunks * MBCN_ITERS, f"{tag} train: launches {mb_train_counts[tag]}"
+        scen = obj.adjust(msim, mref, mhist)
+        torch.cuda.synchronize()
+        both_s = time.perf_counter() - t0
+        counts = mb_counts[tag] = _counts()
+        peak = torch.cuda.max_memory_allocated(dev)
+        line = check_mbcn(tag, cfg, mref, mhist, msim, obj, scen, counts)
+        print(f"[multivariate] {tag} MBCn train+adjust on numpy {tuple(scen.data.shape)} f32 -> {scen.data.device}, group {cfg['group']}, nq {cfg['nq']}, "
+              f"{MBCN_ITERS} rotations: train {train_s:.3f} s, train+adjust {both_s:.3f} s (first call, host clock), peak {peak / 2**30:.3f} GiB allocated "
+              f"({(peak - base) / 2**30:.3f} GiB above the {base / 2**30:.3f} GiB held before it); {line}", flush=True)
+        del obj, scen
+    # a small NpdfTransform with a monthly QDM base: the grouped nearest lookup (K1), the energy score on all points
+    tn = xp.date_range("1981-01-01", periods=NPDF_DAYS, freq="D", calendar="noleap")
+    nrng = np.random.default_rng(5)
+
+    def npdf_da(mu):
+        x = nrng.normal(mu, 3, (NPDF_SITES, MBCN_VARS, NPDF_DAYS)).astype(np.float32)
+        x[:, 1] += 0.5 * x[:, 0]
+        return xp.DataArray(x, ("site", "multivar", "time"), {"time": tn, "multivar": np.array(["a", "b", "c"]), "site": np.arange(NPDF_SITES)}, {"units": ""}, "data")
+
+    nref, nhist, nsim = npdf_da(10), npdf_da(12), npdf_da(13)
+    nrot = rand_rot_matrix(MBCN_VARS, num=NPDF_ITERS, dtype=torch.float32, device=dev)     # the stream's generator on the card
+    npdf_kw = dict(base_kws={"nquantiles": 20, "group": "time.month"}, n_iter=NPDF_ITERS, n_escore=0)
+    torch.cuda.synchronize()
+    _reset_counts()
+    with xp.set_options(extra_output=True):
+        nout = xp.NpdfTransform.adjust(nref, nhist, nsim, rot_matrices=nrot, **npdf_kw)
+        torch.cuda.synchronize()
+        npdf_counts = _counts()
+        with xp.set_options(device="cpu"):
+            ncpu = xp.NpdfTransform.adjust(nref, nhist, nsim, rot_matrices=nrot.cpu(), **npdf_kw)
+    assert nout["scen"].data.is_cuda and bool(torch.isfinite(nout["scen"].data).all()) and bool(torch.isfinite(nout["escores"].data).all())
+    assert tuple(nout["escores"].data.shape) == (NPDF_SITES, NPDF_ITERS)
+    # hist and sim, once a rotation, through the 3-D lookup on partition rows
+    assert npdf_counts["interp_table_3d"] == 2 * NPDF_ITERS and npdf_counts["interp_table_2d"] == 0, f"NpdfTransform: launches {npdf_counts}"
+    # [V, site, T]: a site whose float32 state parted from the CPU port's is
+    # off everywhere, the others agree but for a few values on a node boundary
+    close = ((nout["scen"].data.cpu() - ncpu["scen"].data).abs() <= 1e-4).float().mean(dim=(0, 2))
+    good = close >= 0.99
+    assert int(good.sum()) >= NPDF_SITES - 2, f"NpdfTransform: share of values within 1e-4 of the CPU port, by site: {close.tolist()}"
+    torch.testing.assert_close(nout["escores"].data.cpu()[good], ncpu["escores"].data[good], rtol=5e-3, atol=1e-4)
+    print(f"[multivariate] NpdfTransform {NPDF_SITES} sites x {MBCN_VARS} variables x {NPDF_DAYS} days, monthly QDM base, nearest, {NPDF_ITERS} rotations, "
+          f"n_escore=0: finite, launches {npdf_counts}; {int(good.sum())} of {NPDF_SITES} sites have 99 % of their values within 1e-4 of the CPU port "
+          f"(least share {float(close.min()):.4f}); escores of site 0: {[round(float(e), 4) for e in nout['escores'].data[0]]}", flush=True)
+    del nout, ncpu
+
+    # Scaling and LOCI on the headline data, monthly, linear (the fused group blend), against the CPU port
+    sl_counts = {}
+    for cls, kw, tol in (("Scaling", dict(kind="+"), TOL), ("LOCI", dict(thresh="9 K"), dict(rtol=2e-5, atol=2e-5))):
+        torch.cuda.synchronize()
+        _reset_counts()
+        trained = getattr(xp, cls).train(_da(ref_np, t, "ref"), _da(hist_np, t, "hist"), group="time.month", **kw)
+        got = trained.adjust(_da(sim_np, t, "sim"), interp="linear").data
+        torch.cuda.synchronize()
+        sl_counts[cls] = _counts()
+        assert got.is_cuda and tuple(got.shape) == (N_SITES, 365 * N_YEARS) and bool(torch.isfinite(got).all()), f"{cls}: {got.device}, {tuple(got.shape)}"
+        assert sl_counts[cls]["fma"] >= 1, f"{cls}: launches {sl_counts[cls]}"
+        with xp.set_options(device="cpu"):
+            want = getattr(xp, cls).train(_da(ref_np[cut], t, "ref"), _da(hist_np[cut], t, "hist"), group="time.month", **kw).adjust(_da(sim_np[cut], t, "sim"), interp="linear").data
+        torch.testing.assert_close(got[cut].cpu(), want, **tol)
+        print(f"[multivariate] {cls} monthly train+adjust(linear) on numpy {tuple(got.shape)} f32 -> {got.device}: finite, launches fma {sl_counts[cls]['fma']}; "
+              f"first {CHECK_SITES} sites vs the CPU port max abs diff {_max_abs(got[cut].cpu(), want):.3g}", flush=True)
+        del got, trained
+
     # 6. times
+    ours = ("interp_rows_kernel", "interp_bracketed_kernel", "fma_strided_kernel", "sort_rows_warp_kernel", "sort_rows_alt_kernel", "build_levels_kernel", "fold_windows_kernel",
+            "radix_tile_sort_kernel", "merge_pass_kernel")
     q = torch.as_tensor(equally_spaced_nodes(NQ), dtype=torch.float32, device=dev)
     idx = [torch.as_tensor(a, device=dev) for a in (gi.gather_idx, gi.group_idx, gi.scatter_slot)]
     brackets = device_brackets(gi, "linear", dev)
@@ -792,6 +1051,34 @@ def main() -> int:
     print(f"[memory] selection fused step: peak {sel_peak / 2**30:.3f} GiB allocated ({(sel_peak - base) / 2**30:.3f} GiB above "
           f"the {base / 2**30:.3f} GiB held before it)", flush=True)
 
+
+    # the multivariate train steps: one _mbcn_train_block of 20 rotations
+    # (MBCn-a: its one block; MBCn-b: the first of its two chunks of blocks)
+    for tag, cfg in (("MBCn-a", MBCN_A), ("MBCn-b", MBCN_B)):
+        mref, mhist, _ = mbcn_problem(cfg["sites"])
+        ra, ha = (torch.from_numpy(np.moveaxis(d.data, 1, 0).copy()).to(dev) for d in (mref, mhist))   # [V, site, T]
+        chunk = mbcn_chunks(cfg["sites"], cfg["group"])[3]
+        gidx = torch.as_tensor(xp.Grouper(*cfg["group"]).indexes(mref.coords["time"]).gather_idx[:chunk], device=dev)
+        rotm = rand_rot_matrix(MBCN_VARS, num=MBCN_ITERS, dtype=torch.float32, device=dev)
+        qm = torch.as_tensor(equally_spaced_nodes(cfg["nq"]).astype(np.float32), device=dev)
+
+        def mbcn_step():
+            return mbcn._mbcn_train_block(ra, ha, gidx, rotm, qm, interp="nearest", extrap="constant", n_escore=-1)
+
+        summ = _summary(_time_ms(mbcn_step))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        mbcn_step()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(dev)
+        print(f"[time] {tag} _mbcn_train_block {cfg['sites']} sites x {MBCN_VARS} variables x {MBCN_YEARS} yr, {tuple(gidx.shape)} block rows, nq {cfg['nq']}, "
+              f"{MBCN_ITERS} rotations: {MBCN_ITERS / (summ['median_ms'] / 1e3):,.1f} training iterations/s ({_fmt(summ)}); peak {peak / 2**30:.3f} GiB allocated "
+              f"({(peak - base) / 2**30:.3f} GiB above the {base / 2**30:.3f} GiB held before it)", flush=True)
+        _profile(f"one {tag} train step ({MBCN_ITERS} rotations)", mbcn_step, ours)
+        del ra, ha, gidx, mref, mhist
+    torch.cuda.empty_cache()
+
     kb = dict(batch=KERNEL_BATCH)
     times = {"K1": _in_turns(lookup_short, lookup_short_twin, **kb), "K2": _in_turns(lookup2, lookup2_twin, **kb),
              "bracketed": _in_turns(bracketed, bracketed_twin, **kb)}
@@ -809,7 +1096,11 @@ def main() -> int:
         lambda: merge.merged_window_rows(ordered5, SMALL_WINDOW, G, ymax=ymax),
         lambda: merge.merged_window_rows_reference(ordered5, SMALL_WINDOW, G, SMALL_WINDOW * ymax), **kb,
     )
-    shapes = {"K1": tuple(vh.shape), "K2": tuple(v2.shape), "bracketed": tuple(bargs[0].shape), "fma": f"{tuple(fa.shape)} * {tuple(fb.shape)}", "K3": tuple(slab.shape), "K5": tuple(ordered.shape), "K6": tuple(ordered.shape),
+    # the nearest method: K1 on the windowed adjust's rows (its linear row's inputs), K2 on MBCn-b's ranks
+    times["K1 nearest"] = _in_turns(lambda: interp_kernel.interp_table_3d(vh, xsh, ysh, nvh, "nearest"),
+                                    lambda: interp_kernel.interp_table_3d_reference(vh, xsh, ysh, nvh, "nearest"), **kb)
+    times["K2 nearest"] = _in_turns(lambda: interp_kernel.interp_table_2d(*rank_b, "nearest"), lambda: interp_kernel.interp_table_2d_reference(*rank_b, "nearest"), **kb)
+    shapes = {"K1 nearest": tuple(vh.shape), "K2 nearest": f"{tuple(rank_b[0].shape)}, nq {MBCN_B['nq']} (MBCn-b's ranks)", "K1": tuple(vh.shape), "K2": tuple(v2.shape), "bracketed": tuple(bargs[0].shape), "fma": f"{tuple(fa.shape)} * {tuple(fb.shape)}", "K3": tuple(slab.shape), "K5": tuple(ordered.shape), "K6": tuple(ordered.shape),
               "K4": tuple(ordered5.shape), "K7": tuple(key7.shape)}
     for k, (kern, twin) in times.items():
         print(f"[time] {k} {KERNELS[k]['name']} {shapes[k]}: kernel {_fmt(kern)}; plain twin {_fmt(twin)}", flush=True)
@@ -817,6 +1108,12 @@ def main() -> int:
     # before the bracketed entry), fma on same-shape operands and in float64
     kern, twin = _in_turns(lookup, lookup_twin, **kb)
     print(f"[time] K1 long rows {tuple(v.shape)}: kernel {_fmt(kern)}; plain twin {_fmt(twin)}", flush=True)
+    # nearest and linear on the same inputs: the headline rows, MBCn-a's and MBCn-b's ranks
+    for label, args in ((f"K2 {tuple(v2.shape)} nq {NQ}", (v2, xs2, ys2, nv2)), (f"K2 MBCn-a ranks {tuple(rank_a[0].shape)} nq {MBCN_A['nq']}", rank_a),
+                        (f"K2 MBCn-b ranks {tuple(rank_b[0].shape)} nq {MBCN_B['nq']}", rank_b)):
+        near = _summary(_time_ms(lambda: interp_kernel.interp_table_2d(*args, "nearest"), batch=KERNEL_BATCH))
+        lin = _summary(_time_ms(lambda: interp_kernel.interp_table_2d(*args), batch=KERNEL_BATCH))
+        print(f"[time] {label}: nearest {_fmt(near)}; linear {_fmt(lin)}", flush=True)
     fb_full = fb.expand_as(fa).contiguous()
     kern, twin = _in_turns(lambda: fma_kernel.fma(fa, fb_full, fc), lambda: fma_kernel.fma_reference(fa, fb_full, fc), **kb)
     print(f"[time] fma same shape {tuple(fa.shape)} f32: kernel {_fmt(kern)}; plain twin {_fmt(twin)}", flush=True)
@@ -862,6 +1159,9 @@ def main() -> int:
         "bracketed": _bound(bv.numel() * 2 * f4 + bxs.numel() * 2 * f4 + bnv.numel() * 4 + bg0.numel() * 12, bv.numel() * (2 * (log2(NQ) + 5) + 3)),
         "fma": _bound((3 * fa.numel() + fb.numel()) * f4, 2 * fa.numel()),
         "K2": _bound(v2.numel() * 2 * f4 + xs2.numel() * 2 * f4 + nv2.numel() * 4, v2.numel() * (log2(NQ) + 5)),
+        # nearest: the search and two comparisons in place of the division and the fused multiply-add
+        "K1 nearest": _bound(vh.numel() * 2 * f4 + xsh.numel() * 2 * f4 + nvh.numel() * 4, vh.numel() * (log2(NQ) + 4)),
+        "K2 nearest": _bound(rank_b[0].numel() * 2 * f4 + rank_b[1].numel() * 2 * f4 + rank_b[3].numel() * 4, rank_b[0].numel() * (log2(MBCN_B["nq"]) + 4)),
         "K3": _bound(slab.numel() * 2 * f4, slab.numel() * log2(slab.shape[-1])),
         "K5": _bound((ordered.numel() + levels.numel()) * f4, levels.numel()),
         "K6": _bound((ordered.numel() + levels.numel() + folded.numel()) * f4, folded.numel() * log2(len(merge.dyadic_segments(0, HEAVY_WINDOW, 1 << L)))),
@@ -871,8 +1171,6 @@ def main() -> int:
     }
     del folded, merged5
 
-    ours = ("interp_rows_kernel", "interp_bracketed_kernel", "fma_strided_kernel", "sort_rows_warp_kernel", "sort_rows_alt_kernel", "build_levels_kernel", "fold_windows_kernel",
-            "radix_tile_sort_kernel", "merge_pass_kernel")
     _profile("one fused QDM step", qdm_step, ours)
     _profile(f"one fused windowed EQM step (doy+{HEAVY_WINDOW})", heavy_step, ours)
     _profile(f"one fused selection EQM step (doy+{HEAVY_WINDOW}, {SEL_SITES} sites)", sel_step, ours)
@@ -887,11 +1185,13 @@ def main() -> int:
         "K6": paths[HEAVY_WINDOW]["fold_windows"],
         "K4": paths[SMALL_WINDOW]["merged_window_rows"],
         "K7": sel_counts["finite"]["sort_rows_with_payload"],
+        "K1 nearest": npdf_counts["interp_table_3d"],
+        "K2 nearest": mb_counts["MBCn-b"]["interp_table_2d"],
     }
     rows = [
         dict(KERNELS[k], launches=launches[k], max_abs_err=err[k], ms=times[k][0]["median_ms"], plain_ms=times[k][1]["median_ms"],
              bound_ms=bounds[k][0], bound_by=bounds[k][1], library_ms=library_ms.get(k))
-        for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "bracketed", "fma")
+        for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "bracketed", "fma", "K1 nearest", "K2 nearest")
     ]
     print(smi, flush=True)
     print(json.dumps({"kernels": rows}))

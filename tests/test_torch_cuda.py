@@ -590,3 +590,112 @@ def test_fma_kernel_rejects_mixed_operands(cuda):
         fma(a, b.double(), c)
     with pytest.raises(ValueError):
         fma(a, b.cpu(), c)
+
+
+# ------------------------------------- the nearest method and the multivariate path
+
+
+@pytest.mark.parametrize("B,Gp,Lp,nq", [
+    (1, 3, 1, 2), (2, 14, 2049, 50), (4, 7, 333, 64), (3, 5, 100, 1), (5, 4, 3, 2), (16, 367, 150, 50),
+    (3, 5, 1023, 50), (3, 5, 1024, 50), (3, 5, 1025, 1), (2, 3, 4097, 17), (6, 31, 930, 20),
+])
+def test_nearest_kernel_matches_twin_bitwise(cuda, B, Gp, Lp, nq):
+    """The lookup kernel's nearest method on K1's and K2's entries: on-node
+    values, ties, one- and two-node and empty tables, +-inf and NaN."""
+    v, xs, ys, nv = lookup_inputs(B, Gp, Lp, nq, seed=B + Lp, device=cuda, extra=True)
+    k.launches = k.launches_2d = 0
+    got = k.interp_table_3d(v, xs, ys, nv, "nearest")
+    rows = tuple(a.reshape((B * Gp,) + a.shape[2:]) for a in (v, xs, ys, nv))
+    got2 = k.interp_table_2d(*rows, "nearest")
+    torch.cuda.synchronize()
+    assert (k.launches, k.launches_2d) == (1, 1)
+    want = k.interp_table_3d_reference(v, xs, ys, nv, "nearest")
+    assert _nan_equal(got, want) and _nan_equal(got2.reshape(got.shape), want)
+    if nq > 1 and Lp > 100:
+        assert not _nan_equal(got, k.interp_table_3d(v, xs, ys, nv))     # not the linear answer
+
+
+@pytest.mark.parametrize("R,L,nq", [(192, 10950, 50), (4000, 930, 20), (3, 1, 1)])
+def test_nearest_kernel_on_rank_like_values(cuda, R, L, nq):
+    """Ranks in [0, 1] with exact zeros, ones and ties half way between two
+    nodes, at the multivariate schemes' row lengths."""
+    from chip_smoke import rank_lookup_inputs
+
+    args = rank_lookup_inputs(R, L, nq, seed=L, device=cuda)
+    got = k.interp_table_2d(*args, "nearest")
+    torch.cuda.synchronize()
+    assert _nan_equal(got, k.interp_table_2d_reference(*args, "nearest"))
+    off = torch.cat([args[0].new_zeros(1), args[0].reshape(-1)])[1:].reshape(args[0].shape)
+    assert _nan_equal(k.interp_table_2d(off, *args[1:], "nearest"), got)
+
+
+def test_kernel_rejects_an_unknown_method(cuda):
+    v, xs, ys, nv = lookup_inputs(1, 3, 8, 4, device=cuda)
+    with pytest.raises(ValueError, match="methods"):
+        k.interp_table_3d(v, xs, ys, nv, "cubic")
+
+
+def _mv(n_sites, seed, years=3, start="1981-01-01"):
+    T = 365 * years
+    t = xp.date_range(start, periods=T, freq="D", calendar="noleap")
+    x = np.random.default_rng(seed).normal(10, 3, (n_sites, 3, T)).astype(np.float32)
+    x[:, 1] += 0.5 * x[:, 0]
+    return xp.DataArray(x, ("site", "multivar", "time"), {"time": t, "multivar": np.array(["a", "b", "c"]), "site": np.arange(n_sites)}, {"units": ""}, "data")
+
+
+@pytest.mark.parametrize("group,n_chunks", [(("time", 1), 1), (("time.dayofyear", 5), 3)])
+def test_mbcn_on_the_card_against_the_cpu_port(cuda, monkeypatch, group, n_chunks):
+    """Numpy-fed MBCn trains and adjusts on the card through K2's nearest
+    method (``n_iter`` launches a chunk by train, ``n_iter + V`` by adjust)
+    and agrees with the CPU port given the same rotations: three float32
+    iterations, ``af_q`` at 5e-5."""
+    from xsdba_tpu_torch.models import mbcn
+
+    ref, hist, sim = _mv(4, 1), _mv(4, 2), _mv(4, 3, start="2011-01-01")
+    if n_chunks > 1:
+        monkeypatch.setattr(mbcn, "_TRAIN_CHUNK_BUDGET", 4 * 3 * 15 * 130)       # 130 of 365 blocks a chunk
+    kw = dict(base_kws={"nquantiles": 10, "group": xp.Grouper(*group)}, n_iter=3, n_escore=20)
+    k.launches = k.launches_2d = k.launches_bracketed = 0
+    obj = xp.MBCn.train(ref, hist, **kw)
+    assert obj.ds["af_q"].data.is_cuda and obj.ds["rot_matrices"].data.is_cuda
+    assert k.launches_2d == n_chunks * 3
+    scen = obj.adjust(sim, ref, hist)
+    torch.cuda.synchronize()
+    assert (k.launches_2d, k.launches, k.launches_bracketed) == (n_chunks * (3 + 3 + 3), 0, 0)
+    assert scen.data.is_cuda and scen.dims == sim.dims and bool(torch.isfinite(scen.data).all())
+    with xp.set_options(device="cpu"):
+        cpu = xp.MBCn.train(ref, hist, rot_matrices=obj.ds["rot_matrices"].data.cpu(), **kw)
+        cpu_scen = cpu.adjust(sim, ref, hist)
+    torch.testing.assert_close(obj.ds["af_q"].data.cpu(), cpu.ds["af_q"].data, rtol=0, atol=5e-5)
+    torch.testing.assert_close(obj.ds["escores"].data.cpu(), cpu.ds["escores"].data, rtol=2e-3, atol=1e-5)
+    assert float((scen.data.cpu() != cpu_scen.data).float().mean()) <= 0.01
+
+
+def test_npdf_transform_scaling_and_loci_on_the_card(cuda):
+    """Numpy-fed NpdfTransform (monthly QDM base: K1's nearest method),
+    Scaling and LOCI run on the card and agree with the CPU port."""
+    from xsdba_tpu_torch.ops.rotation import rand_rot_matrix
+
+    ref, hist, sim = _mv(3, 4), _mv(3, 5), _mv(3, 6, start="2011-01-01")
+    rot = rand_rot_matrix(3, num=3, device=cuda)
+    assert rot.is_cuda
+    kw = dict(base_kws={"nquantiles": 10, "group": "time.month"}, n_iter=3, n_escore=0)
+    k.launches = 0
+    with xp.set_options(extra_output=True):
+        out = xp.NpdfTransform.adjust(ref, hist, sim, rot_matrices=rot, **kw)
+        with xp.set_options(device="cpu"):
+            cpu = xp.NpdfTransform.adjust(ref, hist, sim, rot_matrices=rot.cpu(), **kw)
+    assert k.launches == 6 and out["scen"].data.is_cuda
+    assert float(((out["scen"].data.cpu() - cpu["scen"].data).abs() > 1e-4).float().mean()) <= 0.01
+    torch.testing.assert_close(out["escores"].data.cpu(), cpu["escores"].data, rtol=5e-3, atol=1e-4)
+
+    t = xp.date_range("1981-01-01", periods=365 * 3, freq="D", calendar="noleap")
+    rng = np.random.default_rng(7)
+    r, h, s = (xp.DataArray(rng.gamma(2, 2, (4, len(t))).astype(np.float32), ("site", "time"), {"time": t}, {"units": "mm/d"}, "pr") for _ in range(3))
+    for cls, tkw, tol in (("Scaling", dict(kind="*"), 2e-6), ("LOCI", dict(thresh="1 mm/d"), 2e-5)):
+        before = fma_kernel.launches
+        got = getattr(xp, cls).train(r, h, group="time.month", **tkw).adjust(s, interp="linear").data
+        assert got.is_cuda and fma_kernel.launches > before
+        with xp.set_options(device="cpu"):
+            want = getattr(xp, cls).train(r, h, group="time.month", **tkw).adjust(s, interp="linear").data
+        torch.testing.assert_close(got.cpu(), want, rtol=tol, atol=tol)

@@ -77,3 +77,51 @@ def test_tensors_keep_their_device_under_the_cuda_default(no_gpu):
         got = built.adjust(sim, interp="linear").data
     assert got.device.type == "cpu"
     torch.testing.assert_close(got, qdm.adjust(sim, interp="linear").data, rtol=0, atol=0)
+
+
+def _mv_arrays(n_sites=2, years=2):
+    t = xp.date_range("2001-01-01", periods=365 * years, freq="D", calendar="noleap")
+    rng = np.random.default_rng(1)
+    mk = lambda mu: xp.DataArray(  # noqa: E731
+        rng.normal(mu, 2, (n_sites, 2, len(t))).astype(np.float32), ("site", "multivar", "time"),
+        {"time": t, "multivar": np.array(["a", "b"])}, {"units": ""}, "mv",
+    )
+    return mk(10), mk(11), mk(12)
+
+
+MULTI = {
+    "MBCn": lambda r, h, s: xp.MBCn.train(r, h, base_kws={"nquantiles": 6}, n_iter=2).adjust(s, r, h),
+    "NpdfTransform": lambda r, h, s: xp.NpdfTransform.adjust(r, h, s, base_kws={"nquantiles": 6}, n_iter=2, n_escore=10),
+    "Scaling": lambda r, h, s: xp.Scaling.train(r, h, group="time.month").adjust(s, interp="linear"),
+    "LOCI": lambda r, h, s: xp.LOCI.train(r, h, group="time.month", thresh="9 K").adjust(s),
+}
+
+
+@pytest.mark.parametrize("cls", sorted(MULTI))
+def test_new_classes_follow_the_device_option(cls):
+    """Numpy-fed MBCn, NpdfTransform, Scaling and LOCI compute on the
+    ``device`` option's device, and keep their trained parameters there."""
+    arrays = _mv_arrays() if cls in ("MBCn", "NpdfTransform") else _arrays()
+    out = MULTI[cls](*arrays)
+    assert isinstance(out.data, torch.Tensor) and out.data.device.type == "cpu" and out.data.dtype == torch.float32
+    assert out.dims == arrays[2].dims or cls == "NpdfTransform"
+    if cls == "MBCn":
+        trained = xp.MBCn.train(arrays[0], arrays[1], base_kws={"nquantiles": 6}, n_iter=2)
+        assert all(trained.ds[n].data.device.type == "cpu" for n in ("af_q", "escores", "rot_matrices"))
+
+
+@pytest.mark.parametrize("cls", sorted(MULTI))
+def test_new_classes_raise_without_a_gpu_under_the_cuda_default(no_gpu, cls):
+    arrays = _mv_arrays() if cls in ("MBCn", "NpdfTransform") else _arrays()
+    with xp.set_options(device="cuda"):
+        with pytest.raises(RuntimeError, match=r"set_options\(device='cpu'\)"):
+            MULTI[cls](*arrays)
+
+
+def test_processing_follows_the_device_option(no_gpu):
+    ref, _, sim = _arrays()
+    assert xp.processing.reordering(ref, sim).data.device.type == "cpu"
+    assert xp.processing.standardize(ref)[0].data.device.type == "cpu"
+    with xp.set_options(device="cuda"):
+        with pytest.raises(RuntimeError, match=r"set_options\(device='cpu'\)"):
+            xp.processing.reordering(ref, sim)

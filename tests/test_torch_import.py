@@ -20,6 +20,7 @@ PACKAGE = ROOT / "xsdba_tpu_torch"
 _PROBE = """
 import importlib, json, pkgutil, sys
 before = set(sys.modules)
+import torch
 import xsdba_tpu_torch
 for m in pkgutil.walk_packages(xsdba_tpu_torch.__path__, "xsdba_tpu_torch."):
     importlib.import_module(m.name)
@@ -28,6 +29,9 @@ print(json.dumps({
     "jax": [m for m in new if m.split(".")[0] in ("jax", "jaxlib", "xsdba_tpu")],
     "port": [m for m in new if m.startswith("xsdba_tpu_torch")],
     "all": sorted(xsdba_tpu_torch.__all__),
+    "processing": sorted(xsdba_tpu_torch.processing.__all__),
+    "accelerator": [m for m in new if m.split(".")[0] == "triton"],
+    "cuda_initialized": torch.cuda.is_initialized(),
 }))
 """
 
@@ -40,10 +44,18 @@ def test_import_loads_no_jax():
     out = json.loads(res.stdout.strip().splitlines()[-1])
     assert out["jax"] == []
     assert "xsdba_tpu_torch.ops.cuda.interp_kernel" in out["port"]
+    # the multivariate slice's modules import like the rest: no JAX, no
+    # Triton, no CUDA context and no build (nothing here has nvcc)
+    assert set(out["port"]) >= {
+        "xsdba_tpu_torch.processing", "xsdba_tpu_torch.models.mbcn", "xsdba_tpu_torch.models._npdft", "xsdba_tpu_torch.models.scaling",
+        "xsdba_tpu_torch.ops.escore", "xsdba_tpu_torch.ops.rotation", "xsdba_tpu_torch.utils.rng",
+    }
+    assert out["accelerator"] == [] and out["cuda_initialized"] is False
     assert set(out["all"]) >= {
         "date_range", "DataArray", "Dataset", "Grouper", "set_options", "get_option",
-        "EmpiricalQuantileMapping", "QuantileDeltaMapping",
+        "EmpiricalQuantileMapping", "QuantileDeltaMapping", "MBCn", "NpdfTransform", "Scaling", "LOCI", "processing",
     }
+    assert set(out["processing"]) == {"standardize", "unstandardize", "reordering", "stack_variables", "unstack_variables", "escore"}
 
 
 @pytest.mark.parametrize("path", sorted(str(p.relative_to(ROOT)) for p in PACKAGE.rglob("*.py")))

@@ -133,20 +133,22 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(case):
 @pytest.mark.parametrize("dtype,method,expect_wrapper", [
     (torch.float32, "linear", True),
     (torch.float64, "linear", False),
-    (torch.float32, "nearest", False),
+    (torch.float32, "nearest", True),
+    (torch.float64, "nearest", False),
 ])
 def test_grouped_lookup_dispatch(monkeypatch, dtype, method, expect_wrapper):
-    """The partitioned grouped lookup hands linear/constant f32 tables to the
-    kernel's wrapper (reshaped to [B, Gp, Lp] rows, int32 counts) and keeps
-    everything else on the plain path; both give the plain answer."""
+    """The partitioned grouped lookup hands linear and nearest constant-
+    extrapolated f32 tables to the kernel's wrapper (reshaped to [B, Gp, Lp]
+    rows, int32 counts, with the method) and keeps everything else on the
+    plain path; both give the plain answer."""
     from xsdba_tpu.utils.calendar import date_range
     from xsdba_tpu.utils.grouper import Grouper
 
     seen = []
 
-    def spy(v, xs, ys, nvalid):
-        seen.append((tuple(v.shape), tuple(xs.shape), nvalid.dtype))
-        return k.interp_table_3d(v, xs, ys, nvalid)
+    def spy(v, xs, ys, nvalid, method):
+        seen.append((tuple(v.shape), tuple(xs.shape), nvalid.dtype, method))
+        return k.interp_table_3d(v, xs, ys, nvalid, method)
 
     monkeypatch.setattr(tinterp, "interp_table_3d", spy)
     gi = Grouper("time.month").indexes(date_range("2001-01-01", periods=365 * 2, freq="D", calendar="noleap"))
@@ -158,7 +160,7 @@ def test_grouped_lookup_dispatch(monkeypatch, dtype, method, expect_wrapper):
     parts = [b[n] for n in ("part0", "g0", "slot0", "part1", "g1", "slot1", "w")]
     got = tinterp.interp_grouped_partitioned(v, xq, yq, *parts, method, "constant", tables_compact=True)
     Gp, Lp = b["part0"].shape
-    assert seen == ([((6, Gp, Lp), (6, Gp, 9), torch.int32)] * 2 if expect_wrapper else [])
+    assert seen == ([((6, Gp, Lp), (6, Gp, 9), torch.int32, method)] * 2 if expect_wrapper else [])
     monkeypatch.setattr(tinterp, "KERNEL_MAX_NQ", 0)  # force the plain path
     want = tinterp.interp_grouped_partitioned(v, xq, yq, *parts, method, "constant", tables_compact=True)
     torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
@@ -216,19 +218,23 @@ def test_row_lookup_matches_reference_interp1d_table():
     ((4, 50), (8,), torch.float32, "linear", "constant", (4, 50)),
     ((50,), (3, 8), torch.float32, "linear", "constant", (3, 50)),
     ((4, 50), (4, 8), torch.float64, "linear", "constant", None),
-    ((4, 50), (4, 8), torch.float32, "nearest", "constant", None),
+    ((4, 50), (4, 8), torch.float32, "nearest", "constant", (4, 50)),
+    ((2, 3, 50), (8,), torch.float32, "nearest", "constant", (6, 50)),
+    ((4, 50), (4, 8), torch.float64, "nearest", "constant", None),
+    ((4, 50), (4, 8), torch.float32, "nearest", "nan", None),
     ((4, 50), (4, 8), torch.float32, "linear", "nan", None),
 ])
 def test_row_lookup_dispatch(monkeypatch, vshape, qshape, dtype, method, extrap, expect):
-    """``interp1d_table`` hands linear/constant f32 tables to K2's wrapper
-    as [R, L] rows (the table broadcast to v's leading dims, int32 counts)
-    and keeps everything else on the plain path; both give the plain
-    answer."""
+    """``interp1d_table`` hands linear and nearest constant-extrapolated f32
+    tables to K2's wrapper as [R, L] rows (the table broadcast to v's
+    leading dims, int32 counts, with the method) and keeps everything else
+    on the plain path; both give the plain answer."""
     seen = []
 
-    def spy(v, xs, ys, nvalid):
+    def spy(v, xs, ys, nvalid, how):
+        assert how == method
         seen.append((tuple(v.shape), tuple(xs.shape), tuple(nvalid.shape), nvalid.dtype))
-        return k.interp_table_2d(v, xs, ys, nvalid)
+        return k.interp_table_2d(v, xs, ys, nvalid, how)
 
     monkeypatch.setattr(tinterp, "interp_table_2d", spy)
     rng = np.random.default_rng(7)
@@ -360,7 +366,12 @@ def test_bracketed_twin_gives_nan_for_a_group_without_a_table():
     ("cpu", torch.float32, 50, 14, True, "linear", "constant", "partition"),     # K1's twin on partition rows
     ("cuda", torch.float64, 50, 14, True, "linear", "constant", "plain"),
     ("cuda", torch.float32, 65, 14, True, "linear", "constant", "plain"),
-    ("cuda", torch.float32, 50, 14, True, "nearest", "constant", "plain"),
+    ("cuda", torch.float32, 50, 14, False, "nearest", "constant", "partition"),  # nearest: collapsed brackets, K1
+    ("cuda", torch.float32, 50, 14, True, "nearest", "constant", "partition"),   # the bracketed entry is linear only
+    ("cpu", torch.float32, 20, 367, False, "nearest", "constant", "partition"),
+    ("cuda", torch.float64, 50, 14, False, "nearest", "constant", "plain"),
+    ("cuda", torch.float32, 50, 14, False, "nearest", "nan", "plain"),
+    ("cuda", torch.float32, 50, 14, False, "cubic", "constant", "plain"),
     ("cuda", torch.float32, 50, 14, True, "linear", "nan", "plain"),
     ("meta", torch.float32, 50, 14, True, "linear", "constant", "plain"),
 ])
@@ -439,3 +450,90 @@ def test_chip_smoke_lookup_inputs_hold_the_binary_search_edges():
     args = bracket_inputs(2, 14, 9, b["g0"], b["g1"], b["w"], seed=15, extra=True)
     assert tuple(args[0].shape) == (2, 365) and args[4].dtype == torch.int32 and args[6].dtype == torch.float32
     assert torch.isfinite(k.interp_bracketed(*args)).any()
+
+
+# ------------------------------------------------------- the nearest method
+
+
+def _nearest_tables():
+    """Tables where nearest has to decide, in sixteenths so that the float32
+    distances are exact: values half way between two nodes (a tie takes the
+    lower node), on nodes, at and beyond the ends (rank-like values: exactly
+    0 and the largest node), +-inf, tied nodes, and tables of two nodes and
+    one."""
+    xs = np.full((6, 5), np.inf, np.float32)
+    ys = np.full((6, 5), np.nan, np.float32)
+    xs[0], ys[0] = np.array([1, 3, 5, 7, 9]) / 16, [1, 2, 3, 4, 5]
+    xs[1], ys[1] = np.array([1, 3, 3, 3, 9]) / 16, [1, 2, 3, 4, 5]       # tied nodes
+    xs[2, :2], ys[2, :2] = np.array([4, 12]) / 16, [-1, 1]                # two nodes
+    xs[3, :1], ys[3, :1] = [0.5], [7]                                     # one node
+    xs[4], ys[4] = np.array([0, 4, 8, 12, 16]) / 16, [5, 4, 3, 2, 1]     # nodes at the ranks' ends
+    nv = np.array([5, 5, 2, 1, 5, 0], np.int32)                          # row 5: no node
+    v = np.tile(np.array([0, 1, 2, 3, 4, 5, 6, 12, 8, 9, 16, -np.inf, np.inf, np.nan, 4, 2], np.float32) / 16, (6, 1))
+    return v, xs, ys, nv
+
+
+def test_nearest_twin_on_ties_ends_and_small_tables():
+    v, xs, ys, nv = _nearest_tables()
+    got = k.interp_table_2d(*_torch(v, xs, ys, nv), "nearest").numpy()
+    # v * 16:        0  1  2  3  4  5  6 12  8  9 16 -inf inf nan 4  2
+    np.testing.assert_array_equal(got[0], [1, 1, 1, 2, 2, 3, 3, 5, 4, 5, 5, 1, 5, np.nan, 2, 1])
+    np.testing.assert_array_equal(got[2], [-1, -1, -1, -1, -1, -1, -1, 1, -1, 1, 1, -1, 1, np.nan, -1, -1])
+    np.testing.assert_array_equal(got[3], [7] * 13 + [np.nan, 7, 7])
+    np.testing.assert_array_equal(got[4], [5, 5, 5, 4, 4, 4, 4, 2, 3, 3, 1, 5, 1, np.nan, 4, 5])
+    assert np.isnan(got[5]).all()
+    # the reference's plain lookup and its compiled interp1d_table, bit for bit
+    vj, xj, yj, nj = (jnp.asarray(a) for a in (v, xs, ys, nv))
+    np.testing.assert_array_equal(got, np.asarray(_interp_unrolled(vj, xj, yj, nj, "nearest", "constant")))
+    np.testing.assert_array_equal(got, k.interp_table_3d(*_torch(v[None], xs[None], ys[None], nv[None]), "nearest").numpy()[0])
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_nearest_twins_match_reference(seed):
+    """K1's and K2's twins under ``nearest`` equal the port's and the
+    reference's ``_interp_unrolled`` and the reference's compiled
+    ``interp1d_table(..., "nearest")`` under ==, edge cases included."""
+    from xsdba_tpu.ops.interp import interp1d_table as jinterp1d
+
+    v, xs, ys, nv, _ = _inputs(seed=seed)
+    args = _torch(v, xs, ys, nv)
+    got = k.interp_table_3d(*args, "nearest")
+    torch.testing.assert_close(got, tinterp._interp_unrolled(*args, "nearest", "constant"), rtol=0, atol=0, equal_nan=True)
+    torch.testing.assert_close(got, k.interp_table_3d_reference(*args, "nearest"), rtol=0, atol=0, equal_nan=True)
+    want = _interp_unrolled(jnp.asarray(v), jnp.asarray(xs), jnp.asarray(ys), jnp.asarray(nv), "nearest", "constant")
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    rows = [a.reshape((-1,) + a.shape[2:]) for a in args]
+    got2 = k.interp_table_2d(*rows, "nearest")
+    torch.testing.assert_close(got2.reshape(got.shape), got, rtol=0, atol=0, equal_nan=True)
+    torch.testing.assert_close(got2, k.interp_table_2d_reference(*rows, "nearest"), rtol=0, atol=0, equal_nan=True)
+    assert (got.numpy() != k.interp_table_3d(*args).numpy())[~np.isnan(got.numpy())].any()      # not the linear answer
+    # through the public lookup on uncompacted tables
+    v2, xq, yq = _rows(seed=seed + 20)
+    want2 = jax.jit(lambda a, b, c: jinterp1d(a, b, c, "nearest", "constant"))(v2, xq, yq)
+    np.testing.assert_array_equal(tinterp.interp1d_table(*_torch(v2, xq, yq), "nearest").numpy(), np.asarray(want2))
+
+
+def test_chip_smoke_rank_inputs_reach_the_ends():
+    """``chip_smoke.py``'s rank-like lookup inputs (the multivariate path's:
+    ranks in [0, 1] against the quantile nodes) hold exact zeros, the top
+    rank and node-boundary ties, and the twin agrees with the reference."""
+    from chip_smoke import rank_lookup_inputs
+
+    v, xs, ys, nv = rank_lookup_inputs(6, 90, 20, seed=3)
+    assert v.dtype == torch.float32 and tuple(xs.shape) == (6, 20) and nv.dtype == torch.int32
+    finite = v[~torch.isnan(v)]
+    assert torch.isnan(v).any() and (v == 0).any() and (v == 1).any() and float(finite.min()) == 0 and float(finite.max()) == 1
+    mid = (xs[:, :-1] + xs[:, 1:]) / 2
+    assert (v[:, :, None] == mid[:, None, :]).any()
+    got = k.interp_table_2d(v, xs, ys, nv, "nearest")
+    want = _interp_unrolled(*(jnp.asarray(a.numpy()) for a in (v, xs, ys, nv)), "nearest", "constant")
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_wrapper_rejects_an_unknown_method():
+    args = _torch(*_inputs(seed=3)[:4])
+    with pytest.raises(ValueError, match="methods"):
+        k.interp_table_3d(*args, "cubic")
+    with pytest.raises(ValueError, match="methods"):
+        k.interp_table_2d_reference(*(a.reshape((-1,) + a.shape[2:]) for a in args), "cubic")
+    assert k.METHODS == {"linear": 0, "nearest": 1}

@@ -363,3 +363,57 @@ def test_fma_broadcasts_and_checks_its_operands():
         fma(a, b.to("meta"), c)
     with pytest.raises(TypeError):
         _lerp(a, a + 1, torch.full((6,), 0.25, dtype=torch.float64))
+
+
+# ------------------------------------------------ interp_on_quantiles_grouped
+
+
+@pytest.mark.parametrize("method", ["linear", "nearest"])
+@pytest.mark.parametrize("group", ["time.month", "time", "time.dayofyear", "time.season"])
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_interp_on_quantiles_grouped(dtype, group, method):
+    """The grouped lookup with cyclic blending against the reference's
+    compiled one, under ==: G = 12, 1, 365 and 4 groups, a NaN table row, a
+    NaN value; brackets computed on the host in the data's dtype."""
+    import jax
+
+    import xsdba_tpu as xt
+    from xsdba_tpu.ops.interp import interp_on_quantiles_grouped as jgrouped
+    from xsdba_tpu_torch.ops.interp import interp_on_quantiles_grouped
+
+    rng = np.random.default_rng(0)
+    gi = xt.Grouper(group).indexes(xt.date_range("2001-01-01", periods=730, freq="D", calendar="noleap"))
+    G = len(gi.positions)
+    xq = np.sort(rng.normal(0, 1, (3, G, 9)), -1).astype(dtype)
+    yq = rng.normal(0, 1, (3, G, 9)).astype(dtype)
+    if G > 2:
+        xq[1, 2] = np.nan
+        yq[2, 1, 4] = np.nan
+    v = rng.normal(0, 1.5, (3, 730)).astype(dtype)
+    v[0, 5] = np.nan
+    want = np.asarray(jax.jit(lambda a, b, c: jgrouped(a, gi.frac_idx, b, c, gi.positions, method, "constant"))(v, xq, yq))
+    got = interp_on_quantiles_grouped(torch.as_tensor(v), gi.frac_idx, torch.as_tensor(xq), torch.as_tensor(yq), gi.positions, method, "constant")
+    assert got.dtype == torch.as_tensor(v).dtype and tuple(got.shape) == v.shape
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_interp_on_quantiles_grouped_routes_through_the_3d_lookup(monkeypatch):
+    """float32 tables of at most 64 nodes go through K1's wrapper on partition
+    rows, nearest (one partition) and linear (two)."""
+    import xsdba_tpu_torch as xp
+    from xsdba_tpu_torch.ops import interp as tinterp
+
+    seen = []
+    real = tinterp.interp_table_3d
+    monkeypatch.setattr(tinterp, "interp_table_3d", lambda v, xs, ys, nv, method: seen.append((tuple(v.shape[:2]), method)) or real(v, xs, ys, nv, method))
+    gi = xp.Grouper("time.season").indexes(xp.date_range("2001-01-01", periods=400, freq="D", calendar="noleap"))
+    rng = np.random.default_rng(1)
+    xq = torch.as_tensor(np.sort(rng.normal(0, 1, (2, 4, 7)), -1), dtype=torch.float32)
+    yq = torch.as_tensor(rng.normal(0, 1, (2, 4, 7)), dtype=torch.float32)
+    v = torch.as_tensor(rng.normal(0, 1, (2, 400)), dtype=torch.float32)
+    tinterp.interp_on_quantiles_grouped(v, gi.frac_idx, xq, yq, gi.positions, "nearest")
+    assert seen == [((2, 6), "nearest")]
+    tinterp.interp_on_quantiles_grouped(v, gi.frac_idx, xq, yq, gi.positions, "linear")
+    assert seen[1:] == [((2, 6), "linear")] * 2
+    tinterp.interp_on_quantiles_grouped(v.double(), gi.frac_idx, xq.double(), yq.double(), gi.positions, "nearest")
+    assert len(seen) == 3

@@ -9,12 +9,16 @@ every Pallas kernel of the JAX package has a hand-written CUDA counterpart:
 the quantile-table lookups (``ops/cuda/interp_kernel.py``, grouped and
 per-row), the windowed quantile's merge engine (``ops/merge.py``) and the
 counting-selection engine's key–payload row sort (``ops/sort.py``).
-Ported so far: EmpiricalQuantileMapping and QuantileDeltaMapping without
-preprocessing, with plain and windowed groupings (ROADMAP.md lists the
-rest).
+Ported so far, six of the eleven train/adjust classes:
+EmpiricalQuantileMapping and QuantileDeltaMapping without preprocessing, with
+plain and windowed groupings; the multivariate MBCn and NpdfTransform, with
+``processing``'s ``stack_variables`` / ``unstack_variables``, ``standardize`` /
+``unstandardize``, ``reordering`` and ``escore``; Scaling and LOCI
+(ROADMAP.md lists the rest).
 """
 
-from .models import EmpiricalQuantileMapping, QuantileDeltaMapping
+from . import processing
+from .models import LOCI, EmpiricalQuantileMapping, MBCn, NpdfTransform, QuantileDeltaMapping, Scaling
 from .utils.calendar import TimeIndex, date_range
 from .utils.container import DataArray, Dataset
 from .utils.grouper import Grouper
@@ -27,9 +31,14 @@ __all__ = [
     "Dataset",
     "EmpiricalQuantileMapping",
     "Grouper",
+    "LOCI",
+    "MBCn",
+    "NpdfTransform",
     "QuantileDeltaMapping",
+    "Scaling",
     "TimeIndex",
     "date_range",
     "get_option",
+    "processing",
     "set_options",
 ]

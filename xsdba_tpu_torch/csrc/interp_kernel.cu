@@ -1,5 +1,6 @@
 // Quantile-table lookup: out = table(v), linear interpolation between the
-// bracketing nodes, constant extrapolation.  Three entries:
+// bracketing nodes or the nearer node's value (`method`), constant
+// extrapolation.  Three entries:
 //   xsdba_interp_table_3d, the per-(batch, group) lookup of the partitioned
 //     grouped adjust, replaces xsdba_tpu/ops/pallas/interp_kernel.py:
 //     interp_table_pallas_3d (K1, the _kernel3d/_interp_body Pallas kernel);
@@ -13,10 +14,20 @@
 //     partition gathers, two K1 calls, two gathers back and the blend),
 //     a layout the TPU needed for want of a cheap per-element gather.
 // Their plain twins are
-// xsdba_tpu_torch/ops/interp.py:_interp_unrolled(..., "linear", "constant")
+// xsdba_tpu_torch/ops/interp.py:_interp_unrolled(..., method, "constant")
 // and ops/cuda/interp_kernel.py:interp_bracketed_reference, and each kernel
 // computes exactly what its twin computes, the single-node guard
 // y1 = isnan(y1) ? y0 : y1 included.
+//
+// The row entries take the method as an argument (0 linear, 1 nearest), a
+// template parameter of the kernel, so that each method compiles to its own
+// straight code.  Nearest shares the search, the staging and every edge,
+// NaN and empty-table rule; once the bracket is found it returns
+// |v - x0| <= |x1 - v| ? y0 : y1 in place of the division and the fused
+// multiply-add (a tie takes the lower node; at the last node x1 is the +inf
+// pad).  It is the method of the multivariate schemes (MBCn, NpdfTransform),
+// whose every rotation looks ranks in [0, 1] up in a row's own table.  The
+// bracketed entry is linear only: nearest never blends two groups.
 //
 // Bound: bytes.  Each value is read once and each result written once (8
 // bytes a value); a table is at most 64 + 64 floats.  What the card spends
@@ -89,6 +100,7 @@ constexpr int kTableBytes = 16 + 8 * kPairStride + 4 * kProbeStride + 4;  // con
 // the pair of a bracket that starts on the last node (x = +inf,
 // y = y[nq - 1]); edge = (x_first, y_first, x_last, y_last); nv its valid
 // count.
+template <bool kNearest>
 __device__ __forceinline__ float lookup(float val, const float* x, const float2* xy, float4 edge, int nv) {
   int cnt = 0;  // nodes <= val: the largest p with x[p - 1] <= val
 #pragma unroll
@@ -99,14 +111,21 @@ __device__ __forceinline__ float lookup(float val, const float* x, const float2*
   const float y0 = n0.y;
   float y1 = n1.y;
   if (isnan(y1)) y1 = y0;  // single valid node: its pair is the NaN pad
-  const float dx = __fsub_rn(n1.x, n0.x);
-  float f = 0.0f;
-  // a NaN or infinite val gives a NaN or infinite quotient, which counts as 0
-  // below: skipped, so that such a value keeps its warp off the division's
-  // slow path
-  if (dx > 0.0f && isfinite(val)) f = __fdiv_rn(__fsub_rn(val, n0.x), dx);
-  if (!isfinite(f)) f = 0.0f;
-  float r = __fmaf_rn(f, __fsub_rn(y1, y0), y0);
+  float r;
+  if (kNearest) {
+    // a NaN val compares false and takes y1, as the twin's select does: the
+    // last rule below makes it NaN either way
+    r = fabsf(__fsub_rn(val, n0.x)) <= fabsf(__fsub_rn(n1.x, val)) ? y0 : y1;
+  } else {
+    const float dx = __fsub_rn(n1.x, n0.x);
+    float f = 0.0f;
+    // a NaN or infinite val gives a NaN or infinite quotient, which counts as
+    // 0 below: skipped, so that such a value keeps its warp off the
+    // division's slow path
+    if (dx > 0.0f && isfinite(val)) f = __fdiv_rn(__fsub_rn(val, n0.x), dx);
+    if (!isfinite(f)) f = 0.0f;
+    r = __fmaf_rn(f, __fsub_rn(y1, y0), y0);
+  }
   if (val < edge.x) r = edge.y;
   if (val > edge.z) r = edge.w;
   if (nv == 0 || isnan(val)) r = NAN;
@@ -140,7 +159,8 @@ struct Split {
   }
 };
 
-template <int kRows>  // rows a block serves: 1 (one tile of a long row) or kWarpRows (a warp a row)
+// kRows: rows a block serves, 1 (one tile of a long row) or kWarpRows (a warp a row)
+template <int kRows, bool kNearest>
 __global__ void __launch_bounds__(kThreads)
 interp_rows_kernel(const float* __restrict__ v, const float* __restrict__ xs, const float* __restrict__ ys,
                    const int* __restrict__ nvalid, float* __restrict__ out, long long rows, int lp, int nq, bool vec) {
@@ -157,7 +177,7 @@ interp_rows_kernel(const float* __restrict__ v, const float* __restrict__ xs, co
 
   const int nv = nvalid[row];
   const float4 edge = table_edge(xs + row * nq, ys + row * nq, nq, nv);
-  auto at = [&](float val) { return lookup(val, sx[sub], sxy[sub], edge, nv); };
+  auto at = [&](float val) { return lookup<kNearest>(val, sx[sub], sxy[sub], edge, nv); };
 
   const int start = kRows == 1 ? blockIdx.y * kTile : 0;
   const int stop = kRows == 1 ? min(start + kTile, lp) : lp;
@@ -205,7 +225,7 @@ interp_bracketed_kernel(const float* __restrict__ v, const float* __restrict__ x
 
   auto in_group = [&](float val, int grp) {
     const int g = min(max(grp, 0), gp - 1);
-    const float r = lookup(val, sx + g * kProbeStride, sxy + g * kPairStride, edge[g], snv[g]);
+    const float r = lookup<false>(val, sx + g * kProbeStride, sxy + g * kPairStride, edge[g], snv[g]);
     return g == grp ? r : NAN;  // no such group: no table
   };
   auto blended = [&](float val, int tstep) {
@@ -236,6 +256,9 @@ bool aligned16(const void* a, const void* b) {
   return ((reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b)) & 15) == 0;
 }
 
+constexpr int kMethodLinear = 0, kMethodNearest = 1;  // the `method` argument of the row entries
+
+template <bool kNear>
 int launch_rows(const void* v, const void* xs, const void* ys, const void* nvalid, void* out, int rows, int lp, int nq,
                 int device, void* stream) {
   if (rows < 0 || lp < 0 || nq < 1 || nq > kMaxNq) return static_cast<int>(cudaErrorInvalidValue);
@@ -253,32 +276,40 @@ int launch_rows(const void* v, const void* xs, const void* ys, const void* nvali
   const bool vec = aligned16(v, out);
   if (lp < kShortRow) {
     const unsigned blocks = static_cast<unsigned>((rows + kWarpRows - 1) / kWarpRows);
-    interp_rows_kernel<kWarpRows><<<blocks, kThreads, 0, s>>>(pv, px, py, pn, po, rows, lp, nq, vec);
+    interp_rows_kernel<kWarpRows, kNear><<<blocks, kThreads, 0, s>>>(pv, px, py, pn, po, rows, lp, nq, vec);
   } else {
     const dim3 grid(static_cast<unsigned>(rows), static_cast<unsigned>(tiles));
-    interp_rows_kernel<1><<<grid, kThreads, 0, s>>>(pv, px, py, pn, po, rows, lp, nq, vec);
+    interp_rows_kernel<1, kNear><<<grid, kThreads, 0, s>>>(pv, px, py, pn, po, rows, lp, nq, vec);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+int launch_rows_by(int method, const void* v, const void* xs, const void* ys, const void* nvalid, void* out, int rows,
+                   int lp, int nq, int device, void* stream) {
+  if (method == kMethodLinear) return launch_rows<false>(v, xs, ys, nvalid, out, rows, lp, nq, device, stream);
+  if (method == kMethodNearest) return launch_rows<true>(v, xs, ys, nvalid, out, rows, lp, nq, device, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
 // Every entry launches on `stream` of CUDA device `device` (leaving the
 // calling thread's current device as it found it) and returns
-// cudaGetLastError() (0 on success); nq table nodes (<= 64).
+// cudaGetLastError() (0 on success); nq table nodes (<= 64); method 0 is
+// linear interpolation, 1 the nearer node's value.
 
 // rows = B * Gp partition rows of lp values each.
 extern "C" int xsdba_interp_table_3d(const void* v, const void* xs, const void* ys,
                                      const void* nvalid, void* out, int rows, int lp,
-                                     int nq, int device, void* stream) {
-  return launch_rows(v, xs, ys, nvalid, out, rows, lp, nq, device, stream);
+                                     int nq, int method, int device, void* stream) {
+  return launch_rows_by(method, v, xs, ys, nvalid, out, rows, lp, nq, device, stream);
 }
 
 // v/out [rows, l], xs/ys [rows, nq], nvalid [rows]: one table per row.
 extern "C" int xsdba_interp_table_2d(const void* v, const void* xs, const void* ys,
                                      const void* nvalid, void* out, int rows, int l,
-                                     int nq, int device, void* stream) {
-  return launch_rows(v, xs, ys, nvalid, out, rows, l, nq, device, stream);
+                                     int nq, int method, int device, void* stream) {
+  return launch_rows_by(method, v, xs, ys, nvalid, out, rows, l, nq, device, stream);
 }
 
 // v/out [sites, t], xs/ys [sites, gp, nq], nvalid [sites, gp], g0/g1 [t]

@@ -2,11 +2,17 @@
 
 from .base import Adjust, BaseAdjustment, TrainAdjust
 from .eqm import EmpiricalQuantileMapping, QuantileDeltaMapping
+from .mbcn import MBCn, NpdfTransform
+from .scaling import LOCI, Scaling
 
 __all__ = [
+    "LOCI",
     "Adjust",
     "BaseAdjustment",
     "EmpiricalQuantileMapping",
+    "MBCn",
+    "NpdfTransform",
     "QuantileDeltaMapping",
+    "Scaling",
     "TrainAdjust",
 ]

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from ..ops.correction import apply_correction, get_correction
+from ..ops.cuda.fma_kernel import fma
 from ..ops.interp import interp1d_table, interp_grouped_partitioned
 from ..ops.quantile import _static_ok, _static_safe, _windowed_chunks, grouped_nan_quantile, nan_quantile, windowed_group_quantile
 from ..ops.segment import gather_groups, grouped_rank
@@ -34,6 +35,8 @@ __all__ = [
     "qdm_adjust_core",
     "qdm_train_adjust_core",
     "qm_adjust_core",
+    "scaling_adjust_core",
+    "scaling_train_core",
 ]
 
 
@@ -44,9 +47,15 @@ def _pad_cyclic_factors(f):
     return f
 
 
-def broadcast_groups_core(f, brackets):
+def broadcast_groups_core(f, brackets, fused: bool = False):
     """Map per-group factors [..., G] onto the time axis [..., T] using
-    bracket partitions (reference ``u.broadcast``, utils.py:180-248)."""
+    bracket partitions (reference ``u.broadcast``, utils.py:180-248).
+
+    ``fused`` rounds the blend of the two bracketing groups once, as
+    ``fma(1 - ww, v0, ww * v1)``: what the JAX package's compiled cores
+    (Scaling, LOCI) compute, where XLA contracts the blend.  Its eager
+    caller (EQM's ``max_tail_factor`` mask) rounds every operation, and so
+    does the default here."""
     part0, g0, slot0, part1, g1, slot1, w = brackets
     f = as_tensor(f)
     # partitions index padded groups (G+2) unless G == 1
@@ -62,6 +71,8 @@ def broadcast_groups_core(f, brackets):
         return v0
     v1 = eval_part(part1, g1, slot1)
     ww = w.to(v0.dtype)
+    if fused:
+        return fma(1 - ww, v0, ww * v1)
     return (1 - ww) * v0 + ww * v1
 
 
@@ -129,6 +140,20 @@ def qdm_train_adjust_core(ref, hist, sim, gather_idx, group_idx, scatter_slot, b
         kind=kind, interp=interp, extrapolation=extrapolation,
     )
     return scen
+
+
+def scaling_train_core(ref, hist, gather_ref, gather_hist, *, kind: str):
+    """Scaling train (reference ``_adjustment.py:938-958``): group means."""
+    mu_ref = torch.nanmean(gather_groups(ref, gather_ref), dim=-1)
+    mu_hist = torch.nanmean(gather_groups(hist, gather_hist), dim=-1)
+    return get_correction(mu_hist, mu_ref, kind)
+
+
+def scaling_adjust_core(sim, af, brackets, *, kind: str):
+    """Scaling adjust (reference ``_adjustment.py:961-974``); the group
+    blend rounded once, as the JAX package's compiled core rounds it."""
+    af_t = broadcast_groups_core(af, brackets, fused=True)
+    return apply_correction(sim, af_t, kind)
 
 
 def eqm_train_from_raw(ref, hist, gather_idx, quantiles, *, kind: str):

@@ -12,7 +12,7 @@ from ..utils.container import DataArray
 from ..utils.grouper import GroupIndexes
 from ..utils.tensor import input_tensor
 
-__all__ = ["Brackets", "batch_of", "device_brackets", "fold_add_dims", "grouped_var", "scen_like", "to_compute"]
+__all__ = ["Brackets", "batch_of", "device_brackets", "fold_add_dims", "grouped_var", "scen_like", "to_compute", "training_tensors"]
 
 
 @dataclass
@@ -114,6 +114,24 @@ def fold_add_dims(group, *das: DataArray):
             bdims = tuple(dims[j] for j in perm if dims[j] not in adims and dims[j] != "time")
             bcoords = {d: dac.coords[d] for d in bdims if d in dac.coords}
     return outs, bdims, bcoords, n_add
+
+
+def training_tensors(group, ref: DataArray, hist: DataArray):
+    """What a grouped training starts from: ``(refa, hista, batch dims,
+    batch coords, gi, gi_t)`` with ref and hist as [..., T] tensors on one
+    device (``group.add_dims`` folded into the time axis for pooled
+    training), ``gi`` the group indexes of ref's time axis and ``gi_t``
+    those of the tensors' (expanded over the folded dims)."""
+    gi = group.indexes(ref.time)
+    if group.add_dims:
+        # pooled training over the extra dims (reference base.py:413)
+        (refa, hista), bdims, bcoords, n_add = fold_add_dims(group, ref, hist)
+        gi_t = gi.expand(n_add)
+    else:
+        refa, bdims, bcoords = to_compute(ref)
+        hista, _, _ = to_compute(hist)
+        gi_t = gi
+    return refa, hista.to(refa.device), bdims, bcoords, gi, gi_t
 
 
 def batch_of(da: DataArray):

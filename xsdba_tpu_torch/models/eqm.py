@@ -19,7 +19,7 @@ from ..utils.container import DataArray, Dataset
 from ..utils.grouper import Grouper
 from ..utils.tensor import as_tensor, numpy_dtype, to_numpy
 from . import _algos
-from ._wrap import device_brackets, fold_add_dims, grouped_var, scen_like, to_compute
+from ._wrap import device_brackets, grouped_var, scen_like, to_compute, training_tensors
 from .base import TrainAdjust
 
 __all__ = ["EmpiricalQuantileMapping", "QuantileDeltaMapping"]
@@ -73,15 +73,7 @@ class EmpiricalQuantileMapping(TrainAdjust):
             quantiles = np.asarray(nquantiles)
         _check_preprocess(adapt_freq_thresh, jitter_under_thresh_value, jitter_over_thresh_value, jitter_over_thresh_upper_bnd)
 
-        gi = group.indexes(ref.time)
-        if group.add_dims:
-            # pooled training over the extra dims (reference base.py:413)
-            (refa, hista), bdims, bcoords, n_add = fold_add_dims(group, ref, hist)
-            gi_t = gi.expand(n_add)
-        else:
-            refa, bdims, bcoords = to_compute(ref)
-            hista, _, _ = to_compute(hist)
-            gi_t = gi
+        refa, hista, bdims, bcoords, gi, gi_t = training_tensors(group, ref, hist)
         quantiles = quantiles.astype(numpy_dtype(refa.dtype))
         q_t = torch.as_tensor(quantiles, device=refa.device)
         gather_idx = torch.as_tensor(gi_t.gather_idx, device=refa.device)

@@ -1,13 +1,16 @@
 """CUDA quantile-table lookup: the kernels of the adjust step.
 
-``interp_table_3d(v, xs, ys, nvalid)`` evaluates, for every partition row
-``(b, g)``, that row's own compacted table at each of the row's values:
-v [B, Gp, Lp] f32, xs/ys [B, Gp, nq] f32 (nq <= 64; valid nodes first and
-ascending, then a +inf / NaN tail), nvalid [B, Gp] int32 -> [B, Gp, Lp] f32.
-Linear interpolation, constant extrapolation, NaN for an empty table or a
-NaN value.  ``interp_table_2d(v, xs, ys, nvalid)`` is the same lookup with
-one table per row of v [R, L] (xs/ys [R, nq], nvalid [R]), the ungrouped
-adjust's (``ops/interp.py:interp1d_table``).  They replace
+``interp_table_3d(v, xs, ys, nvalid, method)`` evaluates, for every
+partition row ``(b, g)``, that row's own compacted table at each of the
+row's values: v [B, Gp, Lp] f32, xs/ys [B, Gp, nq] f32 (nq <= 64; valid
+nodes first and ascending, then a +inf / NaN tail), nvalid [B, Gp] int32 ->
+[B, Gp, Lp] f32.  ``method`` is ``"linear"`` (interpolation between the
+bracketing nodes) or ``"nearest"`` (the nearer node's value, a tie taking
+the lower one); constant extrapolation, NaN for an empty table or a NaN
+value.  ``interp_table_2d(v, xs, ys, nvalid, method)`` is the same lookup
+with one table per row of v [R, L] (xs/ys [R, nq], nvalid [R]), the
+ungrouped adjust's and every rotation's of the multivariate schemes
+(``ops/interp.py:interp1d_table``).  They replace
 ``xsdba_tpu/ops/pallas/interp_kernel.py:interp_table_pallas_3d`` (K1) and
 ``interp_table_pallas`` (K2); both launch one kernel, on rows.
 
@@ -50,6 +53,7 @@ from . import _build
 __all__ = [
     "BRACKETED_SMEM_BUDGET",
     "MAX_NQ",
+    "METHODS",
     "SHORT_ROW",
     "bracketed_fits",
     "bracketed_smem_bytes",
@@ -78,7 +82,9 @@ SHORT_ROW = 1024
 #: shared memory a block of the bracketed kernel may use for a site's tables
 #: (``kBracketSmem`` in the source: what a launch gets without opting in)
 BRACKETED_SMEM_BUDGET = 48 * 1024
-_ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p], ctypes.c_int)
+#: the row lookups' methods, as the C entries number them
+METHODS = {"linear": 0, "nearest": 1}
+_ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p], ctypes.c_int)
 _SIGNATURES = {
     "xsdba_interp_table_3d": _ARGS,
     "xsdba_interp_table_2d": _ARGS,
@@ -101,21 +107,28 @@ def bracketed_fits(gp: int, nq: int) -> bool:
     return gp >= 1 and 1 <= nq <= MAX_NQ and bracketed_smem_bytes(gp) <= BRACKETED_SMEM_BUDGET
 
 
-def interp_table_3d_reference(v, xs, ys, nvalid):
-    """The kernel's plain twin: ``_interp_unrolled`` linear/constant on the
-    same arguments (any device)."""
+def interp_table_3d_reference(v, xs, ys, nvalid, method: str = "linear"):
+    """The kernel's plain twin: ``_interp_unrolled`` with ``method`` and
+    constant extrapolation on the same arguments (any device)."""
     from ..interp import _interp_unrolled
 
-    return _interp_unrolled(v, xs, ys, nvalid, "linear", "constant")
+    _check_method(method)
+    return _interp_unrolled(v, xs, ys, nvalid, method, "constant")
 
 
-def interp_table_2d_reference(v, xs, ys, nvalid):
-    """The 2-D kernel's plain twin: ``_interp_unrolled`` linear/constant on
-    the same arguments (any device)."""
-    return interp_table_3d_reference(v, xs, ys, nvalid)
+def interp_table_2d_reference(v, xs, ys, nvalid, method: str = "linear"):
+    """The 2-D kernel's plain twin: ``_interp_unrolled`` with ``method`` and
+    constant extrapolation on the same arguments (any device)."""
+    return interp_table_3d_reference(v, xs, ys, nvalid, method)
 
 
-def _check(v, xs, ys, nvalid, names="B, Gp"):
+def _check_method(method: str):
+    if method not in METHODS:
+        raise ValueError(f"the lookup kernel serves the methods {sorted(METHODS)}, got {method!r}")
+
+
+def _check(v, xs, ys, nvalid, method, names="B, Gp"):
+    _check_method(method)
     rank = len(names.split(", ")) + 1
     if v.ndim != rank:
         raise ValueError(f"v must be [{names}, L], got shape {tuple(v.shape)}")
@@ -140,40 +153,41 @@ def _check(v, xs, ys, nvalid, names="B, Gp"):
         raise ValueError(f"no lookup kernel for device {v.device}")
 
 
-def _launch(entry: str, v, xs, ys, nvalid):
+def _launch(entry: str, v, xs, ys, nvalid, method: str):
     out = torch.empty_like(v)
     if out.numel() == 0:
         return out
     stream = torch.cuda.current_stream(v.device).cuda_stream
     rc = getattr(_build.library("interp_kernel", _SIGNATURES), entry)(
         v.data_ptr(), xs.data_ptr(), ys.data_ptr(), nvalid.data_ptr(), out.data_ptr(),
-        nvalid.numel(), v.shape[-1], xs.shape[-1], v.device.index, stream,
+        nvalid.numel(), v.shape[-1], xs.shape[-1], METHODS[method], v.device.index, stream,
     )
     if rc != 0:
         raise RuntimeError(f"{entry} kernel launch failed: cudaError {rc}")
     return out
 
 
-def interp_table_3d(v, xs, ys, nvalid):
+def interp_table_3d(v, xs, ys, nvalid, method: str = "linear"):
     """Partition-layout lookup (K1): v [B, Gp, Lp]; xs/ys [B, Gp, nq]
-    compacted per-(batch, group) tables; nvalid [B, Gp] int32 -> [B, Gp, Lp]."""
+    compacted per-(batch, group) tables; nvalid [B, Gp] int32 -> [B, Gp, Lp];
+    ``method`` "linear" or "nearest"."""
     global launches
-    _check(v, xs, ys, nvalid)
+    _check(v, xs, ys, nvalid, method)
     if v.device.type == "cpu":
-        return interp_table_3d_reference(v, xs, ys, nvalid)
-    out = _launch("xsdba_interp_table_3d", v, xs, ys, nvalid)
+        return interp_table_3d_reference(v, xs, ys, nvalid, method)
+    out = _launch("xsdba_interp_table_3d", v, xs, ys, nvalid, method)
     launches += out.numel() > 0
     return out
 
 
-def interp_table_2d(v, xs, ys, nvalid):
+def interp_table_2d(v, xs, ys, nvalid, method: str = "linear"):
     """Row lookup (K2): v [R, L]; xs/ys [R, nq] one compacted table per
-    row; nvalid [R] int32 -> [R, L]."""
+    row; nvalid [R] int32 -> [R, L]; ``method`` "linear" or "nearest"."""
     global launches_2d
-    _check(v, xs, ys, nvalid, names="R")
+    _check(v, xs, ys, nvalid, method, names="R")
     if v.device.type == "cpu":
-        return interp_table_2d_reference(v, xs, ys, nvalid)
-    out = _launch("xsdba_interp_table_2d", v, xs, ys, nvalid)
+        return interp_table_2d_reference(v, xs, ys, nvalid, method)
+    out = _launch("xsdba_interp_table_2d", v, xs, ys, nvalid, method)
     launches_2d += out.numel() > 0
     return out
 

@@ -11,9 +11,9 @@ Replaces the reference's ``interp_on_quantiles`` (``utils.py:317-513``):
 The plain form locates each value by summed comparisons over the (small,
 static) quantile axis and selects the bracketing nodes by masked
 accumulation (:func:`_interp_unrolled`).  The grouped lookup has three
-routes (:func:`lookup_route`), chosen by shape, dtype and device alone.  Linear,
-constant-extrapolated f32 tables of at most 64 nodes go to the hand-written
-kernels of ``ops/cuda/interp_kernel.py``: on a CUDA tensor with blended
+routes (:func:`lookup_route`), chosen by shape, dtype and device alone.  Linear
+and nearest, constant-extrapolated f32 tables of at most 64 nodes go to the
+hand-written kernels of ``ops/cuda/interp_kernel.py``: on a CUDA tensor with blended
 brackets and a site's padded tables within the kernel's shared-memory budget
 (monthly and seasonal groups) one *bracketed* launch looks each value up in
 its two bracketing groups' tables and blends; otherwise (collapsed brackets,
@@ -35,15 +35,18 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..utils.tensor import as_tensor
+from ..utils.grouper import partition_by_group
+from ..utils.tensor import as_tensor, numpy_dtype, to_numpy
 from .cuda.fma_kernel import fma
 from .cuda.interp_kernel import MAX_NQ as KERNEL_MAX_NQ
+from .cuda.interp_kernel import METHODS as KERNEL_METHODS
 from .cuda.interp_kernel import bracketed_fits, interp_bracketed, interp_table_2d, interp_table_3d
 
 __all__ = [
     "bracket_steps",
     "interp1d_table",
     "interp_grouped_partitioned",
+    "interp_on_quantiles_grouped",
     "interp_on_quantiles_reference",
     "lookup_route",
     "searchsorted_batched",
@@ -196,11 +199,11 @@ def interp1d_table(v, xq, yq, method: str = "linear", extrap: str = "constant"):
     NaN pairs in the table are ignored; NaN in v stays NaN.
     ``extrap``: 'constant' fills beyond the table with the first/last valid
     yq; 'nan' fills with NaN (reference utils.py:353-368).
-    ``method``: 'linear' or 'nearest' ('cubic' is ROADMAP A7).  Linear,
-    constant-extrapolated float32 tables of at most ``KERNEL_MAX_NQ`` nodes
-    go through the 2-D lookup kernel's wrapper (``interp_table_2d``: the
-    CUDA kernel on a CUDA tensor, its plain twin on a CPU tensor), one
-    table per row of v's broadcast leading dims.
+    ``method``: 'linear' or 'nearest' ('cubic' is ROADMAP A7).  Either,
+    with constant extrapolation, on float32 tables of at most
+    ``KERNEL_MAX_NQ`` nodes goes through the 2-D lookup kernel's wrapper
+    (``interp_table_2d``: the CUDA kernel on a CUDA tensor, its plain twin
+    on a CPU tensor), one table per row of v's broadcast leading dims.
     """
     v = as_tensor(v)
     xq = as_tensor(xq, device=v.device)
@@ -212,7 +215,7 @@ def interp1d_table(v, xq, yq, method: str = "linear", extrap: str = "constant"):
     nq, L = xs.shape[-1], v.shape[-1]
     R = int(np.prod(lead, dtype=np.int64))
     rows = lambda a, *tail: a.expand(lead + tail).reshape((R,) + tail).contiguous()  # noqa: E731
-    out = interp_table_2d(rows(v, L), rows(xs, nq), rows(ys, nq), rows(nvalid.to(torch.int32)))
+    out = interp_table_2d(rows(v, L), rows(xs, nq), rows(ys, nq), rows(nvalid.to(torch.int32)), method)
     return out.reshape(lead + (L,))
 
 
@@ -243,12 +246,12 @@ def _pad_cyclic_tables(xq, yq, tables_compact: bool = False):
 
 
 def _served(device_type: str, dtype, nq: int, method: str, extrap: str) -> bool:
-    """Whether the kernels' wrappers serve such a lookup: linear, constant
-    extrapolation, float32 tables of at most ``KERNEL_MAX_NQ`` nodes, on the
-    CPU (their plain twins) or CUDA."""
+    """Whether the kernels' wrappers serve such a lookup: linear or nearest,
+    constant extrapolation, float32 tables of at most ``KERNEL_MAX_NQ``
+    nodes, on the CPU (their plain twins) or CUDA."""
     return (
         device_type in ("cpu", "cuda")
-        and method == "linear"
+        and method in KERNEL_METHODS
         and extrap == "constant"
         and 0 < nq <= KERNEL_MAX_NQ
         and dtype == torch.float32
@@ -262,14 +265,15 @@ def lookup_route(device_type: str, dtype, nq: int, gp: int, blended: bool, metho
     - ``"plain"``: :func:`_interp_unrolled`; everything the kernels' wrappers
       do not serve (:func:`_served`);
     - ``"bracketed"``: one launch of the bracketed kernel, for a CUDA tensor
-      with blended brackets whose tables fit its shared-memory budget;
+      with blended brackets whose tables fit its shared-memory budget
+      (linear only: nearest never blends two groups);
     - ``"partition"``: the 3-D (or 2-D) lookup's wrapper on partition rows,
       which launches its kernel on a CUDA tensor and runs the kernel's plain
       twin on a CPU tensor.
     """
     if not _served(device_type, dtype, nq, method, extrap):
         return "plain"
-    if device_type == "cuda" and blended and bracketed_fits(gp, nq):
+    if device_type == "cuda" and blended and method == "linear" and bracketed_fits(gp, nq):
         return "bracketed"
     return "partition"
 
@@ -304,7 +308,7 @@ def _eval_tables(vals, xqs, yqs, nvs, method: str, extrap: str):
         return _interp_unrolled(vals, xqs, yqs, nvs, method, extrap)
     x3, y3, n3 = _flat_tables(vals.shape[:-2], xqs, yqs, nvs)
     v3 = vals.reshape((x3.shape[0],) + vals.shape[-2:]).contiguous()
-    return interp_table_3d(v3, x3, y3, n3).reshape(vals.shape)
+    return interp_table_3d(v3, x3, y3, n3, method).reshape(vals.shape)
 
 
 def interp_grouped_partitioned(
@@ -367,6 +371,67 @@ def interp_grouped_partitioned(
     val1 = eval_partition(part1, g1, slot1)
     ww = as_tensor(w, dtype=v.dtype, device=v.device)
     return fma(1 - ww, val0, ww * val1)
+
+
+def interp_on_quantiles_grouped(v, frac_idx, xq, yq, group_positions, method: str = "linear", extrap: str = "constant"):
+    """Grouped quantile-table lookup with cyclic group blending.
+
+    v: [..., T] values to look up; frac_idx: [T] fractional group index
+    (1-based month/doy style — see ``Grouper.interp_index``);
+    xq, yq: [..., G, nq] per-group tables; group_positions: [G] the group
+    coordinate values (e.g. 1..12 for months).
+
+    Equivalent of reference ``utils.py:409-513``: groups are cyclically padded
+    (``add_cyclic_bounds``, utils.py:284-314) so indexes below the first /
+    above the last group blend with the wrapped-around group.  For each
+    timestep the two bracketing group tables are evaluated in 1-D and blended
+    linearly by the fractional offset, ``(1 - w) * val0 + w * val1`` with
+    every operation rounded (the JAX package accumulates the two products
+    over a loop of the padded groups, where nothing contracts).  ``nearest``
+    and a single group collapse the brackets onto one group.
+
+    The brackets are a function of ``frac_idx`` and ``group_positions``
+    alone, so they are computed on the host, in the data's dtype as the JAX
+    package computes them, and the time axis is partitioned by bracketing
+    group: every partition row is evaluated against its own table in one
+    batched call (the 3-D lookup's wrapper where it serves the tensors, see
+    :func:`lookup_route`), as :func:`interp_grouped_partitioned` does.
+    """
+    v = as_tensor(v)
+    xq_p, yq_p, nv_p = _compact_nan_pairs(as_tensor(xq, device=v.device), as_tensor(yq, device=v.device))
+    npdt = numpy_dtype(v.dtype)
+    frac = to_numpy(frac_idx).astype(npdt)
+    pos = to_numpy(group_positions).astype(npdt)
+    G = xq_p.shape[-2]
+    if G > 1:
+        pos_p = np.concatenate([pos[:1] - (pos[1] - pos[0]), pos, pos[-1:] + (pos[-1] - pos[-2])])
+        xq_p = torch.cat([xq_p[..., -1:, :], xq_p, xq_p[..., :1, :]], dim=-2)
+        yq_p = torch.cat([yq_p[..., -1:, :], yq_p, yq_p[..., :1, :]], dim=-2)
+        nv_p = torch.cat([nv_p[..., -1:], nv_p, nv_p[..., :1]], dim=-1)
+    else:
+        pos_p = pos
+    Gp = xq_p.shape[-2]
+    T = v.shape[-1]
+
+    def eval_partition(grp):
+        part, slot = partition_by_group(grp, Gp)
+        pi = torch.as_tensor(part, device=v.device).long()
+        vals = torch.where(pi >= 0, v[..., torch.clamp(pi, 0, max(T - 1, 0))], torch.nan)   # [..., Gp, Lp]
+        out = _eval_tables(vals, xq_p, yq_p, nv_p, method, extrap)
+        return out[..., torch.as_tensor(grp, device=v.device), torch.as_tensor(slot, device=v.device).long()]
+
+    if Gp == 1:
+        return eval_partition(np.zeros(T, dtype=np.int64))
+    if method == "nearest" or G == 1:
+        # single target group per timestep (both brackets collapse onto it)
+        g = np.clip(np.searchsorted(pos_p, frac, side="left"), 1, Gp - 1)
+        return eval_partition(np.where(frac - pos_p[g - 1] < pos_p[g] - frac, g - 1, g).astype(np.int64))
+    g1 = np.clip(np.searchsorted(pos_p, frac, side="right"), 1, Gp - 1).astype(np.int64)
+    g0 = g1 - 1
+    p0, p1 = pos_p[g0], pos_p[g1]
+    w = np.where(p1 > p0, (frac - p0) / np.where(p1 == p0, 1, p1 - p0), 0).astype(npdt)
+    ww = torch.as_tensor(w, device=v.device)
+    return (1 - ww) * eval_partition(g0) + ww * eval_partition(g1)
 
 
 # ---------------------------------------------------------------------------

@@ -29,7 +29,7 @@ import numpy as np
 
 from .calendar import TimeIndex
 
-__all__ = ["Grouper", "GroupIndexes", "parse_group"]
+__all__ = ["Grouper", "GroupIndexes", "parse_group", "partition_by_group"]
 
 _PROPS = ("group", "month", "season", "dayofyear", "week")
 
@@ -339,22 +339,8 @@ class GroupIndexes:
             p0v, p1v = pos_p[g0], pos_p[g1]
             w = np.where(p1v > p0v, (frac - p0v) / np.where(p1v == p0v, 1, p1v - p0v), 0.0)
 
-        def partition(gsel):
-            T = len(gsel)
-            counts = np.bincount(gsel, minlength=Gp)
-            L = max(int(counts.max()), 1)
-            order = np.argsort(gsel, kind="stable")
-            sorted_g = gsel[order]
-            start = np.searchsorted(sorted_g, np.arange(Gp), side="left")
-            within = np.arange(T) - start[sorted_g]
-            part = np.full((Gp, L), -1, dtype=np.int32)
-            part[sorted_g, within] = order
-            slot = np.zeros(T, dtype=np.int32)
-            slot[order] = within
-            return part, slot
-
-        part0, slot0 = partition(g0)
-        part1, slot1 = partition(g1)
+        part0, slot0 = partition_by_group(g0, Gp)
+        part1, slot1 = partition_by_group(g1, Gp)
 
         def regular_period(part):
             # rows 1..P full with part[1+i, y] == y*P + i and empty pad rows:
@@ -378,6 +364,24 @@ class GroupIndexes:
             "n_padded": Gp,
             "regular0": regular_period(part0),
         }
+
+
+def partition_by_group(gsel, n_groups: int):
+    """Static partition of the time axis by group id ``gsel`` [T]: (part
+    [n_groups, L] of time indices in order, -1 padded; slot [T], each
+    step's column in its group's row), both int32."""
+    T = len(gsel)
+    counts = np.bincount(gsel, minlength=n_groups)
+    L = max(int(counts.max(initial=0)), 1)
+    order = np.argsort(gsel, kind="stable")
+    sorted_g = gsel[order]
+    start = np.searchsorted(sorted_g, np.arange(n_groups), side="left")
+    within = np.arange(T) - start[sorted_g]
+    part = np.full((n_groups, L), -1, dtype=np.int32)
+    part[sorted_g, within] = order
+    slot = np.zeros(T, dtype=np.int32)
+    slot[order] = within
+    return part, slot
 
 
 class Grouper:
