@@ -79,6 +79,23 @@ Phases, each reported on lines of its own:
    then a small ``NpdfTransform`` (8 sites x 2000 days, monthly QDM base,
    ``n_escore=0``: K1 with ``nearest``) and ``Scaling`` / ``LOCI`` at 512
    sites x 150 yr, monthly, linear, against the CPU port;
+   5d. DQM (numpy inputs, so on the card): BASELINE config 2, daily pr at
+   512 sites x 150 noleap years (:func:`pr_problem`),
+   ``DetrendedQuantileMapping.train(kind="*", group="time.month",
+   nquantiles=50, adapt_freq_thresh="1 mm/d",
+   jitter_under_thresh_value="0.01 mm/d")`` then ``.adjust(interp="nearest",
+   detrend=LoessDetrend(group="time", kind="*", f=0.2, niter=1, d=0))``
+   (the FFT core, 5478 edge points a side); and ``group="time.dayofyear",
+   window=31`` on the heavy data (``kind="+"``, nq 50, ``detrend=1``: the
+   merge engine and a polynomial trend a windowed group).  Each is finite,
+   its launches asserted (config 2: one K1 launch, ``nearest`` on the
+   monthly partition's long rows, and no other kernel: every multiply-add
+   of that path is eager in the JAX package, so none is fused; dayofyear +
+   31: K3, K5, K6, fma and K1), and equal on the first 4 sites to the
+   port's CPU path (the same draws, :class:`SeededDraws`): the trend at
+   1e-5, scen at 1e-5 but for the values whose nearest node moved (rank
+   flips, counted and printed, at most 1 %); then the LOESS trend alone at
+   [512, 54750] on the card against the CPU port, interior and edges apart;
 6. times (2 warm-ups, median of 5 and the spread): the fused QDM, windowed
    EQM (merge) and selection steps in gridpoint-years/s (CUDA events), the
    public calls on the same data (host clock), each kernel against its twin
@@ -93,9 +110,14 @@ Phases, each reported on lines of its own:
    the heavy and selection steps and of the heavy public call, the MBCn-a
    and MBCn-b train steps (``_mbcn_train_block``; MBCn-b's on its first
    chunk of blocks) in training iterations/s with their peak memory, the
-   lookup's ``nearest`` method beside ``linear`` on the same inputs, and for
-   each fused step the five kernels that take the most device time plus
-   the port's own kernels (``torch.profiler``).
+   lookup's ``nearest`` method beside ``linear`` on the same inputs, the DQM
+   steps in gridpoint-years/s (config 2's train: jitter, adapt_freq and
+   ``dqm_train_core``; the windowed train ``dqm_train_windowed``; each
+   adjust's quantile-mapping step) with their peak memory, the LOESS and
+   PolyDetrend trends alone, the public DQM train and adjust calls (host
+   clock), and for each fused step, config 2's public adjust and the two
+   trends the five kernels that take the most device time plus the port's
+   own kernels (``torch.profiler``).
 
 Each path's kernel launches are counted from 0 just before it runs and read
 just after; launches made to compare a kernel with its twin do not count.
@@ -108,7 +130,8 @@ window-5 path's, K7's the selection path's, the bracketed lookup's the QDM
 path's, fma's the heavy path's, at its extraction's broadcast lerp; the
 ``nearest`` rows: K2's launches and shape are MBCn-b's, K1's launches the
 small NpdfTransform's and its timed shape the windowed adjust's, the same
-as its ``linear`` row), each
+as its ``linear`` row; ``K1 nearest (long rows)``: config 2's launches, at
+its monthly partition shape [512, 14, 4650]), each
 with its least possible time on an H100 (``bound_ms``: the
 larger of its bytes over 3.35 TB/s and its operations over 67 TFLOP/s); the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device the
@@ -127,15 +150,27 @@ import numpy as np
 import torch
 
 import xsdba_tpu_torch as xp
-from xsdba_tpu_torch.models._algos import eqm_train_adjust_windowed, eqm_train_from_raw, qdm_train_adjust_core, qm_adjust_core
+from xsdba_tpu_torch import processing
+from xsdba_tpu_torch.models._algos import (
+    dqm_train_core,
+    dqm_train_windowed,
+    eqm_train_adjust_windowed,
+    eqm_train_from_raw,
+    qdm_train_adjust_core,
+    qm_adjust_core,
+)
 from xsdba_tpu_torch.models import mbcn
+from xsdba_tpu_torch.models.dqm import _scaled
 from xsdba_tpu_torch.models._wrap import device_brackets
 from xsdba_tpu_torch.ops import merge, sort
 from xsdba_tpu_torch.ops.correction import equally_spaced_nodes
 from xsdba_tpu_torch.ops.cuda import _build, fma_kernel, interp_kernel
+from xsdba_tpu_torch.ops.detrend import grouped_polyfit_trend
 from xsdba_tpu_torch.ops.interp import _compact_nan_pairs
+from xsdba_tpu_torch.ops.loess import loess_smoothing
 from xsdba_tpu_torch.ops.quantile import merge_slab
 from xsdba_tpu_torch.ops.rotation import rand_rot_matrix
+from xsdba_tpu_torch.ops.segment import gather_groups
 from xsdba_tpu_torch.ops.selquant import plan_labels
 
 N_SITES, N_YEARS, NQ = 512, 150, 50
@@ -154,6 +189,18 @@ MBCN_A = dict(sites=64, group=("time", 1), nq=50, check=8)
 MBCN_B = dict(sites=256, group=("time.dayofyear", 31), nq=20, check=2)
 MBCN_AF_TOL, MBCN_FIRST = 5e-5, 3
 NPDF_SITES, NPDF_DAYS, NPDF_ITERS = 8, 2000, 5
+# BASELINE config 2: DQM on daily pr, multiplicative, monthly, LOESS
+# detrending, with the dry-day preprocessing its users pass (without the
+# jitter, kind="*" divides zero quantiles by zero quantiles: the JAX package
+# leaves most of scen NaN on this data)
+PR_SITES, PR_YEARS, PR_CHECK = 512, 150, 4
+PR_TRAIN = dict(kind="*", group="time.month", nquantiles=NQ, adapt_freq_thresh="1 mm/d", jitter_under_thresh_value="0.01 mm/d")
+LOESS_KW = dict(f=0.2, niter=1, d=0)
+# the card against the CPU port: a value whose nearest node moved is a rank
+# flip (an ulp of the detrended value across a half-way point); the rest
+# are held at FLIP_RTOL, the flips to at most MAX_FLIPS of the values
+FLIP_RTOL, MAX_FLIPS = 1e-5, 0.01
+LOESS_RTOL = 1e-5
 # H100 SXM peaks: HBM bytes/s, float32 FLOP/s
 PEAK_BYTES, PEAK_OPS = 3.35e12, 67e12
 # a kernel's time: the mean of KERNEL_BATCH back-to-back calls, queued
@@ -177,6 +224,7 @@ KERNELS = {
     # the row lookups' second method: the same kernel, no Pallas kernel serves it in the reference
     "K1 nearest": dict(name="interp_table_3d[nearest]", route="cuda", source=_SRC + "interp_kernel.cu", replaces=_PALLAS + "interp_kernel.py:101"),
     "K2 nearest": dict(name="interp_table_2d[nearest]", route="cuda", source=_SRC + "interp_kernel.cu", replaces=_PALLAS + "interp_kernel.py:141"),
+    "K1 nearest (long rows)": dict(name="interp_table_3d[nearest, long rows]", route="cuda", source=_SRC + "interp_kernel.cu", replaces=_PALLAS + "interp_kernel.py:101"),
 }
 
 
@@ -353,6 +401,88 @@ def mbcn_chunks(n_sites, group):
     G, Lw = xp.Grouper(*group).indexes(xp.date_range("1981-01-01", periods=365 * MBCN_YEARS, freq="D", calendar="noleap")).gather_idx.shape
     chunk = mbcn._chunk_size(G, n_sites * MBCN_VARS, Lw)
     return -(-G // chunk), G, Lw, chunk
+
+
+def pr_problem(n_sites, n_years):
+    """Config 2's data: daily pr, f32, mm/d, over ``n_years`` noleap years
+    from 1950: ref 60 % wet days of Gamma(0.9, scale 5) and hist 80 % wet
+    days of Gamma(0.7, scale 5) (the drizzle bias), drawn in turn from numpy
+    seed 4; sim hist's recipe from seed 5, times a trend of 1 + 0.3 t / T."""
+    T = 365 * n_years
+    t = xp.date_range("1950-01-01", periods=T, freq="D", calendar="noleap")
+
+    def wet(rng, share, k):
+        return (rng.gamma(k, 5.0, (n_sites, T)) * (rng.random((n_sites, T)) < share)).astype(np.float32)
+
+    rng = np.random.default_rng(4)
+    ref, hist = wet(rng, 0.6, 0.9), wet(rng, 0.8, 0.7)
+    sim = wet(np.random.default_rng(5), 0.8, 0.7) * (1 + 0.3 * np.arange(T, dtype=np.float32) / T)
+    return t, (ref, hist, sim)
+
+
+def _pr_da(x, t, name):
+    return xp.DataArray(x, ("site", "time"), {"time": t}, {"units": "mm/d"}, name)
+
+
+def config2_train(ref, hist, t):
+    return xp.DetrendedQuantileMapping.train(_pr_da(ref, t, "ref"), _pr_da(hist, t, "hist"), **PR_TRAIN)
+
+
+def config2_adjust(dqm, sim, t):
+    """Config 2's adjust: nearest, LOESS detrending on the whole series (the
+    FFT core); a Dataset with ``scen`` and ``trend``."""
+    with xp.set_options(extra_output=True):
+        return dqm.adjust(_pr_da(sim, t, "sim"), interp="nearest", detrend=xp.detrending.LoessDetrend(group="time", kind="*", **LOESS_KW))
+
+
+def dqm_doy_train(ref, hist, t):
+    return xp.DetrendedQuantileMapping.train(_da(ref, t, "ref"), _da(hist, t, "hist"), kind="+", group="time.dayofyear", window=HEAVY_WINDOW, nquantiles=NQ)
+
+
+def dqm_doy_adjust(dqm, sim, t):
+    """The windowed DQM's adjust: nearest, a degree-1 polynomial trend a
+    windowed dayofyear group."""
+    with xp.set_options(extra_output=True):
+        return dqm.adjust(_da(sim, t, "sim"), detrend=1)
+
+
+class SeededDraws:
+    """While active, the port's preprocessing draws (jitter, adapt_freq) are
+    made on the CPU, each from a generator seeded anew (``seed``, ``seed + 1``,
+    ...), and moved to the data's device.  A run on the card and a run on the
+    CPU of its first sites then draw the same numbers for those sites; the
+    stream's own generators differ between devices."""
+
+    def __init__(self, seed):
+        self.seed = seed
+
+    def __enter__(self):
+        self.saved, count = processing._uniform, iter(range(self.seed, self.seed + (1 << 30)))
+
+        def uniform(x, low, high):
+            u = torch.rand(tuple(x.shape), dtype=x.dtype, generator=torch.Generator().manual_seed(next(count)))
+            return torch.clamp(u * (high - low) + low, min=low).to(x.device)
+
+        processing._uniform = uniform
+        return self
+
+    def __exit__(self, *exc):
+        processing._uniform = self.saved
+
+
+def held_with_flips(label, got, want):
+    """The card's ``got`` against the CPU port's ``want`` where a nearest
+    lookup may pick a neighbouring node: values off by more than FLIP_RTOL
+    are counted as rank flips (at most MAX_FLIPS of the values); the rest
+    must be within FLIP_RTOL.  Returns the line to print."""
+    torch.testing.assert_close(torch.isnan(got), torch.isnan(want))
+    ok = _nan_equal(got, want) | ((got - want).abs() <= FLIP_RTOL * want.abs() + FLIP_RTOL)
+    flips = int((~ok).sum())
+    near = torch.where(ok, got, want)
+    err = _max_abs(near, want)
+    share = flips / got.numel()
+    assert share <= MAX_FLIPS, f"{label}: {flips} of {got.numel()} values moved by a node step"
+    return f"{flips} of {got.numel()} values moved by a node step (rank flips), the rest within {FLIP_RTOL:g} (max abs diff {err:.3g})"
 
 
 def first_sites(da, n):
@@ -670,6 +800,9 @@ def main() -> int:
     _hold(err, "K1", f"K1 lookup, short rows, the search's edges nq={NQ}", *k1, *lookup_inputs(16, hgp, hlp, NQ, seed=5, device=dev, extra=True))
     # the nearest method on the same cases: the same kernel, the same twin
     _hold(err, "K1 nearest", f"K1 nearest lookup nq={NQ}", *k1, v, xs, ys, nv, "nearest")
+    # config 2's adjust: nearest on the monthly partition's long rows, also with the search's edges
+    _hold(err, "K1 nearest (long rows)", f"K1 nearest lookup, long rows nq={NQ}", *k1, v, xs, ys, nv, "nearest")
+    _hold(err, "K1 nearest (long rows)", f"K1 nearest lookup, long rows, the search's edges nq={NQ}", *k1, *lookup_inputs(8, Gp, Lp, NQ, seed=13, device=dev, extra=True), "nearest")
     _hold(err, "K2 nearest", f"K2 nearest row lookup nq={NQ}", *k2, v2, xs2, ys2, nv2, "nearest")
     _hold(err, "K1 nearest", f"K1 nearest lookup, short rows nq={NQ}", *k1, vh, xsh, ysh, nvh, "nearest")
     _hold(err, "K1 nearest", f"K1 nearest lookup, short rows, the search's edges nq={NQ}", *k1, *lookup_inputs(16, hgp, hlp, NQ, seed=5, device=dev, extra=True), "nearest")
@@ -988,6 +1121,75 @@ def main() -> int:
               f"first {CHECK_SITES} sites vs the CPU port max abs diff {_max_abs(got[cut].cpu(), want):.3g}", flush=True)
         del got, trained
 
+    # 5d. DQM through the public calls on numpy inputs: BASELINE config 2 (pr,
+    # multiplicative, monthly, dry-day preprocessing, LOESS on the FFT core),
+    # then dayofyear + 31 on the heavy data (the merge engine, a polynomial
+    # trend a windowed group)
+    tp, (pref_np, phist_np, psim_np) = pr_problem(PR_SITES, PR_YEARS)
+    dqm_runs = {}
+    for tag, train, adjust, data, t_run in (
+        ("config 2", config2_train, config2_adjust, (pref_np, phist_np, psim_np), tp),
+        ("dayofyear+31", dqm_doy_train, dqm_doy_adjust, (href_np, hhist_np, hsim_np), th),
+    ):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        _reset_counts()
+        t0 = time.perf_counter()
+        trained = train(data[0], data[1], t_run)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        out = adjust(trained, data[2], t_run)
+        torch.cuda.synchronize()
+        both_s = time.perf_counter() - t0
+        counts = _counts()
+        peak = torch.cuda.max_memory_allocated(dev)
+        scen = out["scen"].data
+        S = data[0].shape[0]
+        assert scen.is_cuda and scen.dtype == torch.float32 and tuple(scen.shape) == (S, data[0].shape[1]), (scen.device, scen.dtype, tuple(scen.shape))
+        assert bool(torch.isfinite(scen).all()) and bool(torch.isfinite(out["trend"].data).all()), f"DQM {tag}: non-finite output"
+        others = {k: n for k, n in counts.items() if n and k not in ("interp_table_3d", "fma") + tuple(merge.launches)}
+        assert not others, f"DQM {tag}: another kernel of the port ran: {counts}"
+        if tag == "config 2":
+            # one K1 launch (nearest, the monthly partition's long rows) and
+            # nothing else: every multiply-add of this path is eager in the
+            # JAX package, so none is fused (ROADMAP C11)
+            assert counts["interp_table_3d"] == 1 and counts["fma"] == 0 and not any(counts[k] for k in merge.launches), f"DQM {tag}: launches {counts}"
+            with SeededDraws(7):
+                got = config2_adjust(config2_train(pref_np, phist_np, tp), psim_np, tp)
+            with SeededDraws(7), xp.set_options(device="cpu"):
+                want = config2_adjust(config2_train(*(a[:PR_CHECK] for a in (pref_np, phist_np)), tp), psim_np[:PR_CHECK], tp)
+        else:
+            assert all(counts[k] >= 1 for k in ("sort_rows_alternating", "build_levels", "fold_windows", "fma", "interp_table_3d")), f"DQM {tag}: launches {counts}"
+            assert counts["build_levels"] == counts["fold_windows"], f"DQM {tag}: launches {counts}"
+            got = out
+            with xp.set_options(device="cpu", selection_backend=False):   # the CPU's default engine is selection
+                want = dqm_doy_adjust(dqm_doy_train(*(a[:PR_CHECK] for a in (href_np, hhist_np)), th), hsim_np[:PR_CHECK], th)
+        cut4 = slice(0, PR_CHECK)
+        trend_err = float(((got["trend"].data[cut4].cpu() - want["trend"].data).abs() / want["trend"].data.abs()).max())
+        assert trend_err <= LOESS_RTOL, f"DQM {tag}: the trend differs from the CPU port's by {trend_err:.3g} (relative)"
+        line = held_with_flips(f"DQM {tag}", got["scen"].data[cut4].cpu(), want["scen"].data)
+        dqm_runs[tag] = dict(counts=counts, trained=trained, out=out)
+        print(f"[dqm] {tag} train+adjust on numpy {tuple(scen.shape)} f32 -> {scen.device}: finite, launches {counts}; train {train_s:.3f} s, "
+              f"train+adjust {both_s:.3f} s (first call, host clock), peak {peak / 2**30:.3f} GiB allocated ({(peak - base) / 2**30:.3f} GiB above "
+              f"the {base / 2**30:.3f} GiB held before it); first {PR_CHECK} sites vs the CPU port (the same draws): trend max rel diff {trend_err:.3g}, "
+              f"scen: {line}", flush=True)
+        del scen, out, got, want
+    # the LOESS trend alone on the card against the CPU port at config 2's
+    # width, interior and edges apart
+    x_ord = np.asarray(tp.ordinal, dtype=np.float64)
+    psim = torch.from_numpy(psim_np).to(dev)
+    lo_card = loess_smoothing(psim, x_ord, **LOESS_KW).cpu()
+    lo_cpu = loess_smoothing(torch.from_numpy(psim_np), x_ord, **LOESS_KW)
+    n_t = psim_np.shape[1]
+    edge = (2 * (int(LOESS_KW["f"] * n_t) // 2)) // 2 + 3
+    parts = {"left edge": np.s_[:, :edge], "interior": np.s_[:, edge:-edge], "right edge": np.s_[:, -edge:]}
+    lo_err = {k: float(((lo_card[sl] - lo_cpu[sl]).abs() / lo_cpu[sl].abs()).max()) for k, sl in parts.items()}
+    assert max(lo_err.values()) <= LOESS_RTOL, f"LOESS on the card vs the CPU port: {lo_err}"
+    print(f"[dqm] LoessDetrend trend alone {tuple(psim.shape)} f32 (f={LOESS_KW['f']}, {edge} edge points a side) on the card vs the CPU port, max rel diff: "
+          + ", ".join(f"{k} {v:.3g}" for k, v in lo_err.items()), flush=True)
+    del lo_card, lo_cpu
+
     # 6. times
     ours = ("interp_rows_kernel", "interp_bracketed_kernel", "fma_strided_kernel", "sort_rows_warp_kernel", "sort_rows_alt_kernel", "build_levels_kernel", "fold_windows_kernel",
             "radix_tile_sort_kernel", "merge_pass_kernel")
@@ -1079,6 +1281,73 @@ def main() -> int:
         del ra, ha, gidx, mref, mhist
     torch.cuda.empty_cache()
 
+    # the DQM steps (CUDA events): config 2's train (jitter, frequency
+    # adaptation, normalized quantiles of the gathered months) and the
+    # windowed train (merge engine), each adjust's quantile-mapping step on
+    # its detrended series, the LOESS and polynomial trends alone; the public
+    # calls (host clock) and their peak memory; config 2's adjust profiled
+    pref, phist = (torch.from_numpy(a).to(dev) for a in (pref_np, phist_np))
+    gim = xp.Grouper("time.month").indexes(tp)
+    gidx_m = torch.as_tensor(gim.gather_idx, device=dev)
+    c2 = dqm_runs["config 2"]
+    doy = dqm_runs["dayofyear+31"]
+
+    def c2_train_step():
+        h = processing._jitter_core(phist, 0.01, None, None)
+        refg = gather_groups(pref, gidx_m)
+        histg = processing._adapt_freq_grouped(refg, gather_groups(h, gidx_m), 1.0)[0]
+        return dqm_train_core(refg, histg, q, kind="*")
+
+    def doy_train_step():
+        return dqm_train_windowed(href, hhist, hgi.merge_plan, q, kind="+")
+
+    def qm_step_of(run, sim_t, gi_run, kind):
+        tables = [torch.as_tensor(run["trained"].ds[k].data, device=dev) for k in ("hist_q", "af", "scaling")]
+        det = _scaled(sim_t, tables[2], gi_run, "nearest", kind)
+        det = det / run["out"]["trend"].data if kind == "*" else det - run["out"]["trend"].data
+        brk = device_brackets(gi_run, "nearest", dev)
+        return lambda: qm_adjust_core(det, tables[0], tables[1], brk, kind=kind, interp="nearest", extrapolation="constant", tables_compact=True)
+
+    hgroup = [torch.as_tensor(a, device=dev) for a in (hgi.gather_idx, hgi.group_idx, hgi.scatter_slot)]
+    x_h = np.asarray(th.ordinal, dtype=np.float64)
+    dqm_steps = {
+        "config 2 train (jitter + adapt_freq + dqm_train_core)": (c2_train_step, PR_SITES),
+        "config 2 adjust's QM step (qm_adjust_core, nearest)": (qm_step_of(c2, psim, gim, "*"), PR_SITES),
+        "dayofyear+31 train (dqm_train_windowed)": (doy_train_step, HEAVY_SITES),
+        "dayofyear+31 adjust's QM step (qm_adjust_core, nearest)": (qm_step_of(doy, hsim, hgi, "+"), HEAVY_SITES),
+        "LOESS trend alone (loess_smoothing, FFT core)": (lambda: loess_smoothing(psim, x_ord, **LOESS_KW), PR_SITES),
+        "PolyDetrend trend alone (grouped_polyfit_trend, degree 1, doy+31)": (lambda: grouped_polyfit_trend(hsim, x_h, *hgroup, degree=1), HEAVY_SITES),
+    }
+    for label, (step, sites) in dqm_steps.items():
+        summ = _summary(_time_ms(step))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        step()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(dev)
+        print(f"[time] DQM {label}, {sites} sites x {N_YEARS} yr: {sites * N_YEARS / (summ['median_ms'] / 1e3):,.0f} gridpoint-years/s ({_fmt(summ)}); "
+              f"peak {(peak - base) / 2**30:.3f} GiB above the {base / 2**30:.3f} GiB held before it", flush=True)
+    for tag, train, adjust, data, t_run in (
+        ("config 2", config2_train, config2_adjust, (pref_np, phist_np, psim_np), tp),
+        ("dayofyear+31", dqm_doy_train, dqm_doy_adjust, (href_np, hhist_np, hsim_np), th),
+    ):
+        trained = dqm_runs[tag]["trained"]
+        tr = _summary(_host_ms(lambda: train(data[0], data[1], t_run)))
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        ad = _summary(_host_ms(lambda: adjust(trained, data[2], t_run)))
+        peak = torch.cuda.max_memory_allocated(dev)
+        print(f"[time] public DQM {tag} on numpy inputs (host clock): train {_fmt(tr)}; adjust {_fmt(ad)}; adjust's peak {(peak - base) / 2**30:.3f} GiB "
+              f"above the {base / 2**30:.3f} GiB held", flush=True)
+    _profile("config 2's public adjust", lambda: config2_adjust(c2["trained"], psim_np, tp), ours)
+    _profile("config 2's train step", c2_train_step, ours)
+    _profile("dayofyear+31 DQM train step", doy_train_step, ours)
+    for label in ("LOESS trend alone (loess_smoothing, FFT core)", "PolyDetrend trend alone (grouped_polyfit_trend, degree 1, doy+31)"):
+        _profile(label, dqm_steps[label][0], ours)
+    del pref, phist, psim, gidx_m, hgroup
+    torch.cuda.empty_cache()
+
     kb = dict(batch=KERNEL_BATCH)
     times = {"K1": _in_turns(lookup_short, lookup_short_twin, **kb), "K2": _in_turns(lookup2, lookup2_twin, **kb),
              "bracketed": _in_turns(bracketed, bracketed_twin, **kb)}
@@ -1100,7 +1369,10 @@ def main() -> int:
     times["K1 nearest"] = _in_turns(lambda: interp_kernel.interp_table_3d(vh, xsh, ysh, nvh, "nearest"),
                                     lambda: interp_kernel.interp_table_3d_reference(vh, xsh, ysh, nvh, "nearest"), **kb)
     times["K2 nearest"] = _in_turns(lambda: interp_kernel.interp_table_2d(*rank_b, "nearest"), lambda: interp_kernel.interp_table_2d_reference(*rank_b, "nearest"), **kb)
-    shapes = {"K1 nearest": tuple(vh.shape), "K2 nearest": f"{tuple(rank_b[0].shape)}, nq {MBCN_B['nq']} (MBCn-b's ranks)", "K1": tuple(vh.shape), "K2": tuple(v2.shape), "bracketed": tuple(bargs[0].shape), "fma": f"{tuple(fa.shape)} * {tuple(fb.shape)}", "K3": tuple(slab.shape), "K5": tuple(ordered.shape), "K6": tuple(ordered.shape),
+    # config 2's adjust: nearest on the monthly partition's long rows
+    times["K1 nearest (long rows)"] = _in_turns(lambda: interp_kernel.interp_table_3d(v, xs, ys, nv, "nearest"),
+                                                lambda: interp_kernel.interp_table_3d_reference(v, xs, ys, nv, "nearest"), **kb)
+    shapes = {"K1 nearest (long rows)": f"{tuple(v.shape)} (config 2's monthly partition)", "K1 nearest": tuple(vh.shape), "K2 nearest": f"{tuple(rank_b[0].shape)}, nq {MBCN_B['nq']} (MBCn-b's ranks)", "K1": tuple(vh.shape), "K2": tuple(v2.shape), "bracketed": tuple(bargs[0].shape), "fma": f"{tuple(fa.shape)} * {tuple(fb.shape)}", "K3": tuple(slab.shape), "K5": tuple(ordered.shape), "K6": tuple(ordered.shape),
               "K4": tuple(ordered5.shape), "K7": tuple(key7.shape)}
     for k, (kern, twin) in times.items():
         print(f"[time] {k} {KERNELS[k]['name']} {shapes[k]}: kernel {_fmt(kern)}; plain twin {_fmt(twin)}", flush=True)
@@ -1162,6 +1434,7 @@ def main() -> int:
         # nearest: the search and two comparisons in place of the division and the fused multiply-add
         "K1 nearest": _bound(vh.numel() * 2 * f4 + xsh.numel() * 2 * f4 + nvh.numel() * 4, vh.numel() * (log2(NQ) + 4)),
         "K2 nearest": _bound(rank_b[0].numel() * 2 * f4 + rank_b[1].numel() * 2 * f4 + rank_b[3].numel() * 4, rank_b[0].numel() * (log2(MBCN_B["nq"]) + 4)),
+        "K1 nearest (long rows)": _bound(v.numel() * 2 * f4 + xs.numel() * 2 * f4 + nv.numel() * 4, v.numel() * (log2(NQ) + 4)),
         "K3": _bound(slab.numel() * 2 * f4, slab.numel() * log2(slab.shape[-1])),
         "K5": _bound((ordered.numel() + levels.numel()) * f4, levels.numel()),
         "K6": _bound((ordered.numel() + levels.numel() + folded.numel()) * f4, folded.numel() * log2(len(merge.dyadic_segments(0, HEAVY_WINDOW, 1 << L)))),
@@ -1187,11 +1460,12 @@ def main() -> int:
         "K7": sel_counts["finite"]["sort_rows_with_payload"],
         "K1 nearest": npdf_counts["interp_table_3d"],
         "K2 nearest": mb_counts["MBCn-b"]["interp_table_2d"],
+        "K1 nearest (long rows)": dqm_runs["config 2"]["counts"]["interp_table_3d"],
     }
     rows = [
         dict(KERNELS[k], launches=launches[k], max_abs_err=err[k], ms=times[k][0]["median_ms"], plain_ms=times[k][1]["median_ms"],
              bound_ms=bounds[k][0], bound_by=bounds[k][1], library_ms=library_ms.get(k))
-        for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "bracketed", "fma", "K1 nearest", "K2 nearest")
+        for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "bracketed", "fma", "K1 nearest", "K2 nearest", "K1 nearest (long rows)")
     ]
     print(smi, flush=True)
     print(json.dumps({"kernels": rows}))

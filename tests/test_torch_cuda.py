@@ -16,13 +16,22 @@ import torch
 
 import xsdba_tpu_torch as xp
 from chip_smoke import (
+    FLIP_RTOL,
+    LOESS_RTOL,
+    SeededDraws,
     bracket_inputs,
+    config2_adjust,
+    config2_train,
+    dqm_doy_adjust,
+    dqm_doy_train,
     example_problem,
     fma_inputs,
     heavy_problem,
+    held_with_flips,
     lookup_inputs,
     nan_masked,
     pair_sorted,
+    pr_problem,
     resort_oracle,
     run_main_path,
     run_windowed_path,
@@ -33,6 +42,7 @@ from xsdba_tpu_torch.ops.correction import equally_spaced_nodes
 from xsdba_tpu_torch.ops.cuda import fma_kernel
 from xsdba_tpu_torch.ops.cuda import interp_kernel as k
 from xsdba_tpu_torch.ops.cuda.fma_kernel import fma
+from xsdba_tpu_torch.ops.loess import loess_smoothing
 
 pytestmark = pytest.mark.cuda
 
@@ -699,3 +709,52 @@ def test_npdf_transform_scaling_and_loci_on_the_card(cuda):
         with xp.set_options(device="cpu"):
             want = getattr(xp, cls).train(r, h, group="time.month", **tkw).adjust(s, interp="linear").data
         torch.testing.assert_close(got.cpu(), want, rtol=tol, atol=tol)
+
+
+# ------------------------------------------------------------------ DQM
+
+
+@pytest.mark.parametrize("path", ["config 2", "dayofyear+31"])
+def test_public_dqm_on_the_card_against_the_cpu_port(cuda, path):
+    """Config 2 (pr, adapt_freq, jitter, LOESS, nearest on the monthly
+    partition's long rows) and the windowed DQM (merge engine, polynomial
+    trend) at 8 sites x 10 years on numpy inputs: one K1 launch on config 2's
+    path and no merge kernel, the merge kernels on the other's; against the
+    CPU port on the same draws, the trend at 1e-5 and scen but for rank
+    flips of the nearest lookup."""
+    if path == "config 2":
+        t, (ref, hist, sim) = pr_problem(8, 10)
+        train, adjust, cpu_opts = config2_train, config2_adjust, dict(device="cpu")
+    else:
+        t, (ref, hist, sim) = heavy_problem(8, 10)
+        train, adjust, cpu_opts = dqm_doy_train, dqm_doy_adjust, dict(device="cpu", selection_backend=False)
+    k.launches = 0
+    for key in merge.launches:
+        merge.launches[key] = 0
+    with SeededDraws(3):
+        got = adjust(train(ref, hist, t), sim, t)
+    torch.cuda.synchronize()
+    assert got["scen"].data.is_cuda and bool(torch.isfinite(got["scen"].data).all())
+    assert k.launches == 1
+    assert (merge.launches["fold_windows"] == 0) if path == "config 2" else (merge.launches["fold_windows"] >= 1)
+    with SeededDraws(3), xp.set_options(**cpu_opts):
+        want = adjust(train(ref, hist, t), sim, t)
+    torch.testing.assert_close(got["trend"].data.cpu(), want["trend"].data, rtol=LOESS_RTOL, atol=LOESS_RTOL)
+    held_with_flips(path, got["scen"].data.cpu(), want["scen"].data)
+
+
+@pytest.mark.parametrize("n,d", [(300, 0), (300, 1), (20000, 0), (20000, 1)])
+@pytest.mark.parametrize("niter", [1, 2])
+def test_loess_on_the_card_against_the_cpu(cuda, n, d, niter):
+    """Both LOESS cores (gathered windows at n = 300, FFT interior and edge
+    products at n = 20000) on the card against the CPU, float64 at 1e-12
+    and float32 at FLIP_RTOL (d = 0)."""
+    rng = np.random.default_rng(n + d)
+    y = rng.gamma(2.0, 2.0, (4, n)) + 0.5
+    y[0, 7] = np.nan
+    x = np.arange(n, dtype=np.float64)
+    for dtype, tol in ((torch.float64, 1e-12), (torch.float32, FLIP_RTOL if d == 0 else 1e-3)):
+        yt = torch.from_numpy(y).to(dtype)
+        got = loess_smoothing(yt.to(cuda), x, f=0.2, niter=niter, d=d).cpu()
+        want = loess_smoothing(yt, x, f=0.2, niter=niter, d=d)
+        torch.testing.assert_close(got, want, rtol=tol, atol=tol, equal_nan=True)

@@ -30,6 +30,7 @@ print(json.dumps({
     "port": [m for m in new if m.startswith("xsdba_tpu_torch")],
     "all": sorted(xsdba_tpu_torch.__all__),
     "processing": sorted(xsdba_tpu_torch.processing.__all__),
+    "detrending": sorted(xsdba_tpu_torch.detrending.__all__),
     "accelerator": [m for m in new if m.split(".")[0] == "triton"],
     "cuda_initialized": torch.cuda.is_initialized(),
 }))
@@ -49,13 +50,20 @@ def test_import_loads_no_jax():
     assert set(out["port"]) >= {
         "xsdba_tpu_torch.processing", "xsdba_tpu_torch.models.mbcn", "xsdba_tpu_torch.models._npdft", "xsdba_tpu_torch.models.scaling",
         "xsdba_tpu_torch.ops.escore", "xsdba_tpu_torch.ops.rotation", "xsdba_tpu_torch.utils.rng",
+        # the DQM slice's
+        "xsdba_tpu_torch.detrending", "xsdba_tpu_torch.models.dqm", "xsdba_tpu_torch.ops.detrend", "xsdba_tpu_torch.ops.loess",
     }
     assert out["accelerator"] == [] and out["cuda_initialized"] is False
     assert set(out["all"]) >= {
         "date_range", "DataArray", "Dataset", "Grouper", "set_options", "get_option",
         "EmpiricalQuantileMapping", "QuantileDeltaMapping", "MBCn", "NpdfTransform", "Scaling", "LOCI", "processing",
+        "DetrendedQuantileMapping", "detrending",
     }
-    assert set(out["processing"]) == {"standardize", "unstandardize", "reordering", "stack_variables", "unstack_variables", "escore"}
+    assert set(out["processing"]) == {
+        "standardize", "unstandardize", "reordering", "stack_variables", "unstack_variables", "escore",
+        "adapt_freq", "jitter", "jitter_under_thresh", "jitter_over_thresh",
+    }
+    assert set(out["detrending"]) == {"BaseDetrend", "NoDetrend", "MeanDetrend", "PolyDetrend", "LoessDetrend", "RollingMeanDetrend"}
 
 
 @pytest.mark.parametrize("path", sorted(str(p.relative_to(ROOT)) for p in PACKAGE.rglob("*.py")))

@@ -1,19 +1,25 @@
 """The port's ``processing`` functions, rotations and generator stream against
 the JAX package, on the CPU.
 
-Reordering, stacking and the public energy score run on the same numpy
-inputs through both packages.  Reordering moves values and rounds nothing, so
-it is compared under ``==``.  Rotations are tested by their properties: a
+Reordering, stacking, the public energy score and the dry-day
+preprocessing (jitter, adapt_freq) run on the same numpy inputs through both
+packages.  Reordering moves values and rounds nothing, so it is compared
+under ``==``; so is the preprocessing, eager in the JAX package, given the
+reference's draws.  Rotations are tested by their properties: a
 ``torch.Generator`` cannot reproduce the reference's Threefry draws.
 """
 
+import jax
 import numpy as np
 import pytest
 import torch
 
 import xsdba_tpu as xt
 import xsdba_tpu_torch as xp
+from e2e_cases import JAX_SEED
+from test_torch_qdm import reference_draws
 from xsdba_tpu import processing as jproc
+from xsdba_tpu.utils.rng import seed as jax_seed
 from xsdba_tpu_torch import processing as tproc
 from xsdba_tpu_torch.ops.rotation import rand_rot_matrix
 from xsdba_tpu_torch.utils import rng as trng
@@ -232,3 +238,112 @@ def test_generator_stream_starts_at_seed_zero():
     lazy, _, values = out.stdout.strip().partition(" ")
     trng.seed(0)
     assert lazy == "True" and values == str(torch.randn(3, generator=trng.next_generator(), dtype=torch.float64).tolist())
+
+# --------------------------------------------------- dry-day preprocessing
+# jitter and frequency adaptation, given the reference's uniform draws: the
+# cores take them as an argument, and the public calls draw them through
+# ``test_torch_qdm.reference_draws``; the arithmetic is eager in the JAX
+# package, so it is compared under ``==``
+
+
+def pr_series(n, seed=4):
+    """Daily precipitation, BASELINE config 2's recipe at a small size: ref
+    60 % wet days of Gamma(0.9, 5) mm/d, hist 80 % of Gamma(0.7, 5) (the
+    drizzle bias), sim hist's recipe with a 30 % trend, and a hist with 40 %
+    wet days, drier than ref, so that adapt_freq replaces some of its dry
+    days; 2 sites, ``n`` days each."""
+    rng = np.random.default_rng(seed)
+
+    def wet(share, k):
+        return rng.gamma(k, 5.0, (2, n)) * (rng.random((2, n)) < share)
+
+    ref, hist = wet(0.6, 0.9), wet(0.8, 0.7)
+    sim = wet(0.8, 0.7) * (1 + 0.3 * np.arange(n) / n)
+    return ref, hist, sim, wet(0.4, 0.7)
+
+
+@pytest.fixture(scope="module")
+def dry():
+    return pr_series(N)
+
+
+def _jax_uniform(key, shape, dtype, lo, hi):
+    return np.array(jax.random.uniform(key, shape, dtype=dtype, minval=lo, maxval=hi))
+
+
+@pytest.mark.parametrize("case", ["under", "over", "both"])
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_jitter_core_with_the_reference_draws(dry, case, dtype):
+    from xsdba_tpu.processing import _jitter_core as j_jitter
+
+    x = dry[1].astype(dtype)
+    x[0, 3] = np.nan
+    lower = 0.5 if case != "over" else None
+    upper, bnd = (20.0, 30.0) if case != "under" else (None, None)
+    key = jax.random.key(7)
+    want = np.asarray(j_jitter(x, lower, upper, bnd, key=key))
+    under = over = None
+    k = key
+    if lower is not None:
+        k1, k = jax.random.split(k)
+        under = _jax_uniform(k1, x.shape, dtype, np.finfo(dtype).eps, lower)
+    if upper is not None:
+        over = _jax_uniform(jax.random.split(k)[0], x.shape, dtype, upper, bnd)
+    got = tproc._jitter_core(torch.from_numpy(x), lower, upper, bnd, draws=(under, over)).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert np.isnan(got[0, 3]) and (lower is None or (got[np.isfinite(got)] > 0).all())
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_adapt_freq_cores_with_the_reference_draws(dry, dtype):
+    """Training (P0 and pth computed) and adjusting (trained P0 and pth)
+    forms, on a hist drier than ref (some of its dry days replaced) and on
+    the drizzle-biased one (none replaced)."""
+    from xsdba_tpu.ops.segment import gather_groups as j_gather
+    from xsdba_tpu.processing import _adapt_freq_apply_core as j_apply
+    from xsdba_tpu.processing import _adapt_freq_grouped as j_grouped
+
+    ref, hist, sim, drier = (a.astype(dtype) for a in dry)
+    t = xt.date_range("2001-01-01", periods=N, freq="D", calendar="noleap")
+    gi = xt.Grouper("time.month").indexes(t)
+    gip = xp.Grouper("time.month").indexes(_pair(xp, ref).time)
+    refg = np.array(j_gather(ref, gi.gather_idx))
+
+    def draws(key, shape):
+        k1, k2 = jax.random.split(key)
+        return _jax_uniform(k1, shape, dtype, 0.1, 0.25), _jax_uniform(k2, shape, dtype, 0.0, 1.0)
+
+    replaced = []
+    for h in (drier, hist):
+        histg = np.array(j_gather(h, gi.gather_idx))
+        key = jax.random.key(3)
+        want = j_grouped(refg, histg, 1.0, key=key)
+        got = tproc._adapt_freq_grouped(torch.from_numpy(refg), torch.from_numpy(histg), 1.0, draws=draws(key, histg.shape))
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+        replaced.append(int((got[0].numpy() != histg)[~np.isnan(histg)].sum()))
+    assert replaced[0] > replaced[1]     # the drier hist has more dry days to replace
+    _, P0_ref, P0_hist, pth, _ = want
+    key = jax.random.key(5)
+    want_ad = np.asarray(j_apply(sim, gi, 1.0, P0_ref, P0_hist, pth, key=key))
+    got_ad = tproc._adapt_freq_apply_core(torch.from_numpy(sim), gip, 1.0, *(np.asarray(a) for a in (P0_ref, P0_hist, pth)), draws=draws(key, (2, 12, gi.gather_idx.shape[1])))
+    np.testing.assert_array_equal(got_ad.numpy(), want_ad)
+
+
+def test_public_adapt_freq_and_jitter(dry, monkeypatch):
+    """``processing.adapt_freq`` and the jitter functions through the public
+    surface, the port drawing the reference's draws for the same seed."""
+    reference_draws(monkeypatch)
+    (jr, jd, js), (pr, pd, ps) = ([_pair(mod, a, units="mm/d", name="pr") for a in (dry[0], dry[3], dry[2])] for mod in (xt, xp))
+    jax_seed(JAX_SEED)
+    want = xt.processing.adapt_freq(jr, jd, group="time.month", thresh="1 mm/d")
+    jax_seed(JAX_SEED)
+    got = xp.processing.adapt_freq(pr, pd, group="time.month", thresh="1 mm/d")
+    for name in ("sim_ad", "pth", "dP0", "P0_ref", "P0_hist"):
+        assert got[name].dims == want[name].dims
+        np.testing.assert_array_equal(_np(got[name]), _np(want[name]))
+    for fn, args in (("jitter_under_thresh", ("0.5 mm/d",)), ("jitter_over_thresh", ("20 mm/d", "30 mm/d")), ("jitter", ("0.5 mm/d", "20 mm/d", None, "30 mm/d"))):
+        jax_seed(JAX_SEED)
+        want = getattr(xt.processing, fn)(js, *args)
+        jax_seed(JAX_SEED)
+        np.testing.assert_array_equal(_np(getattr(xp.processing, fn)(ps, *args)), _np(want))

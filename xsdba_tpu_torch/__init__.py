@@ -9,16 +9,18 @@ every Pallas kernel of the JAX package has a hand-written CUDA counterpart:
 the quantile-table lookups (``ops/cuda/interp_kernel.py``, grouped and
 per-row), the windowed quantile's merge engine (``ops/merge.py``) and the
 counting-selection engine's key–payload row sort (``ops/sort.py``).
-Ported so far, six of the eleven train/adjust classes:
-EmpiricalQuantileMapping and QuantileDeltaMapping without preprocessing, with
-plain and windowed groupings; the multivariate MBCn and NpdfTransform, with
+Ported so far, seven of the eleven train/adjust classes:
+EmpiricalQuantileMapping, QuantileDeltaMapping and DetrendedQuantileMapping,
+with plain and windowed groupings and the dry-day preprocessing of
+precipitation (``processing``'s ``adapt_freq`` and jitter); the detrending
+objects of ``detrending``; the multivariate MBCn and NpdfTransform, with
 ``processing``'s ``stack_variables`` / ``unstack_variables``, ``standardize`` /
 ``unstandardize``, ``reordering`` and ``escore``; Scaling and LOCI
 (ROADMAP.md lists the rest).
 """
 
-from . import processing
-from .models import LOCI, EmpiricalQuantileMapping, MBCn, NpdfTransform, QuantileDeltaMapping, Scaling
+from . import detrending, processing
+from .models import LOCI, DetrendedQuantileMapping, EmpiricalQuantileMapping, MBCn, NpdfTransform, QuantileDeltaMapping, Scaling
 from .utils.calendar import TimeIndex, date_range
 from .utils.container import DataArray, Dataset
 from .utils.grouper import Grouper
@@ -29,6 +31,7 @@ __version__ = "0.1.0"
 __all__ = [
     "DataArray",
     "Dataset",
+    "DetrendedQuantileMapping",
     "EmpiricalQuantileMapping",
     "Grouper",
     "LOCI",
@@ -38,6 +41,7 @@ __all__ = [
     "Scaling",
     "TimeIndex",
     "date_range",
+    "detrending",
     "get_option",
     "processing",
     "set_options",

@@ -18,7 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..ops.correction import apply_correction, get_correction
+from ..ops.correction import apply_correction, get_correction, invert
 from ..ops.cuda.fma_kernel import fma
 from ..ops.interp import interp1d_table, interp_grouped_partitioned
 from ..ops.quantile import _static_ok, _static_safe, _windowed_chunks, grouped_nan_quantile, nan_quantile, windowed_group_quantile
@@ -28,6 +28,9 @@ from ..utils.tensor import as_tensor
 
 __all__ = [
     "broadcast_groups_core",
+    "dqm_train_core",
+    "dqm_train_from_raw",
+    "dqm_train_windowed",
     "eqm_train_adjust_windowed",
     "eqm_train_core",
     "eqm_train_from_raw",
@@ -231,3 +234,98 @@ def eqm_train_adjust_windowed(
         as_tensor(sim), hist_q, af, brackets, kind=kind, interp=interp, extrapolation=extrapolation, tables_compact=True,
     )
     return scen, af, hist_q
+
+
+def _normalized_tables(refg, histg, quantiles, kind: str, fused: bool = True):
+    """DQM's tables of gathered groups: quantiles of ref and hist normalized
+    by their group means, the factors between them and the means (reference
+    ``_algos.py:251-261``); ``fused`` as for ``ops/quantile.nan_quantile``."""
+    mu_ref = torch.nanmean(refg, dim=-1)
+    mu_hist = torch.nanmean(histg, dim=-1)
+    refn = apply_correction(refg, invert(mu_ref[..., None], kind), kind)
+    histn = apply_correction(histg, invert(mu_hist[..., None], kind), kind)
+    ref_q = nan_quantile(refn, quantiles, axis=-1, fused=fused)
+    hist_q = nan_quantile(histn, quantiles, axis=-1, fused=fused)
+    return get_correction(hist_q, ref_q, kind), hist_q, mu_ref, mu_hist
+
+
+def dqm_train_core(refg, histg, quantiles, *, kind: str):
+    """DQM train on gathered group rows [..., G, L], the path after frequency
+    adaptation (reference ``models/dqm.py:103-112``).  The JAX package runs
+    it eagerly, so the type-7 arithmetic is rounded unfused (ROADMAP C11).
+    Returns (af, hist_q [..., G, nq], scaling [..., G])."""
+    af, hist_q, mu_ref, mu_hist = _normalized_tables(refg, histg, quantiles, kind, fused=False)
+    return af, hist_q, get_correction(mu_hist, mu_ref, kind)
+
+
+def dqm_train_from_raw(ref, hist, gather_idx, quantiles, *, kind: str):
+    """DQM train (normalized quantiles and the scaling factor) straight from
+    [..., T] tensors, the groups taken in blocks that keep a gathered block
+    near 2^28 values (reference ``_algos.py:239-283``).  Returns (af,
+    hist_q [..., G, nq], scaling [..., G])."""
+    ref, hist = as_tensor(ref), as_tensor(hist)
+    gather_idx = as_tensor(gather_idx, device=ref.device)
+    G, L = gather_idx.shape
+    batch = int(np.prod(ref.shape[:-1], dtype=np.int64))
+    chunk = max(1, min(G, (1 << 28) // max(batch * L, 1)))
+    parts = [
+        _normalized_tables(gather_groups(ref, gather_idx[k : k + chunk]), gather_groups(hist, gather_idx[k : k + chunk]), quantiles, kind)
+        for k in range(0, G, chunk)
+    ]
+    af, hist_q, mu_ref, mu_hist = (torch.cat(p, dim=-2 if i < 2 else -1) for i, p in enumerate(zip(*parts)))
+    return af, hist_q, get_correction(mu_hist, mu_ref, kind)
+
+
+def _windowed_group_mean(x, plan):
+    """Per-group NaN-mean of a windowed dayofyear / "5D" grouping from
+    sliding sums of the window-1 groups' sums and counts (a cumulative sum
+    over the extended window-1 rows), the edge groups gathered exactly
+    (reference ``_algos.py:286-311``)."""
+    x = as_tensor(x)
+    gi = torch.as_tensor(plan.w1_gather, device=x.device).long()   # extended rows: [G + 2*half, Ymax]
+    vals = torch.where(gi < 0, torch.nan, x[..., torch.clamp(gi, 0, x.shape[-1] - 1)])
+    sums = torch.nansum(vals, dim=-1)
+    cnts = (~torch.isnan(vals)).sum(dim=-1)
+    half, window = plan.half, plan.window
+    G = gi.shape[0] - 2 * half
+    idx = torch.arange(G, device=x.device)
+
+    def slide(a):
+        # group g's window is the extended rows [g, g + window)
+        cs = torch.cumsum(torch.nn.functional.pad(a, (0, max(window - 2 * half, 0))), dim=-1)
+        cs = torch.nn.functional.pad(cs, (1, 0))
+        return cs[..., idx + window] - cs[..., idx]
+
+    n = slide(cnts)
+    mu = torch.where(n == 0, torch.nan, slide(sums) / torch.clamp(n, min=1))
+    if plan.edge_gather.shape[0]:
+        mu[..., torch.as_tensor(plan.edge_ids, device=x.device).long()] = torch.nanmean(gather_groups(x, plan.edge_gather), dim=-1)
+    return mu
+
+
+def dqm_train_windowed(ref, hist, plan, quantiles, *, kind: str):
+    """DQM train on a windowed dayofyear / "5D" grouping (reference
+    ``_algos.py:604-632``).  A group's mean normalization commutes with its
+    quantiles (an additive shift or a positive scale keeps the order; a
+    negative multiplicative mean reverses it, so the quantile axis is
+    flipped there), so the normalized tables come from the raw values'
+    windowed quantiles (``ops/quantile.windowed_group_quantile``: on CUDA
+    the merge engine) and the windowed group means, without sorting
+    normalized copies.  Returns (af, hist_q [..., G, nq], scaling [..., G])."""
+    ref, hist = as_tensor(ref), as_tensor(hist)
+    if ref.shape == hist.shape and ref.dtype == hist.dtype:
+        ref_q_raw, hist_q_raw = windowed_group_quantile(torch.stack([ref, hist]), plan, quantiles)
+    else:
+        ref_q_raw = windowed_group_quantile(ref, plan, quantiles)
+        hist_q_raw = windowed_group_quantile(hist, plan, quantiles)
+    mu_ref = _windowed_group_mean(ref, plan)
+    mu_hist = _windowed_group_mean(hist, plan)
+
+    def normalize(q_raw, mu):
+        if kind == "*":
+            q_raw = torch.where(mu[..., None] < 0, torch.flip(q_raw, dims=(-1,)), q_raw)
+        return apply_correction(q_raw, invert(mu[..., None], kind), kind)
+
+    ref_q = normalize(ref_q_raw, mu_ref)
+    hist_q = normalize(hist_q_raw, mu_hist)
+    return get_correction(hist_q, ref_q, kind), hist_q, get_correction(mu_hist, mu_ref, kind)

@@ -15,9 +15,12 @@ import numpy as np
 import torch
 
 from ..ops.correction import ADDITIVE, apply_correction, equally_spaced_nodes
+from ..ops.segment import gather_groups
+from ..processing import _adapt_freq_apply_core, _adapt_freq_grouped, _jitter_core
 from ..utils.container import DataArray, Dataset
 from ..utils.grouper import Grouper
 from ..utils.tensor import as_tensor, numpy_dtype, to_numpy
+from ..utils.units import convert_units_to
 from . import _algos
 from ._wrap import device_brackets, grouped_var, scen_like, to_compute, training_tensors
 from .base import TrainAdjust
@@ -42,9 +45,11 @@ class EmpiricalQuantileMapping(TrainAdjust):
     with the row sort kernel of ``ops/sort.py``) or the merge engine
     (``ops/quantile.py``, with the CUDA kernels of ``ops/merge.py``; the
     GPU's default).  Numpy data runs on the ``device`` option's device (CUDA
-    unless the caller asks for the CPU).  Jitter and frequency adaptation
-    and cubic interpolation (ROADMAP A7) are not ported yet and raise
-    ``NotImplementedError``.
+    unless the caller asks for the CPU).  Training takes the dry-day
+    preprocessing (``adapt_freq_thresh``, jitter under or over a threshold),
+    and an object trained with ``adapt_freq_thresh`` adapts sim's dry-day
+    frequency before adjusting it.  Cubic interpolation (ROADMAP A7) is not
+    ported yet and raises ``NotImplementedError``.
     """
 
     _allow_diff_calendars = False
@@ -71,8 +76,6 @@ class EmpiricalQuantileMapping(TrainAdjust):
             quantiles = equally_spaced_nodes(int(nquantiles))
         else:
             quantiles = np.asarray(nquantiles)
-        _check_preprocess(adapt_freq_thresh, jitter_under_thresh_value, jitter_over_thresh_value, jitter_over_thresh_upper_bnd)
-
         refa, hista, bdims, bcoords, gi, gi_t = training_tensors(group, ref, hist)
         quantiles = quantiles.astype(numpy_dtype(refa.dtype))
         q_t = torch.as_tensor(quantiles, device=refa.device)
@@ -84,7 +87,11 @@ class EmpiricalQuantileMapping(TrainAdjust):
             from ..ops.quantile import grouped_nan_quantile
 
             hist_q_raw = grouped_nan_quantile(hista, gather_idx, q_t)
-        if gi_t.merge_plan is not None:
+        hista = _apply_jitter(hista, hist, jitter_under_thresh_value, jitter_over_thresh_value, jitter_over_thresh_upper_bnd)
+        if adapt_freq_thresh is not None:
+            refg, histg, P0_ref, P0_hist, pth = _preprocess(refa, hista, gi_t, hist, adapt_freq_thresh)
+            af, hist_q = _algos.eqm_train_core(refg, histg, q_t, kind=kind)
+        elif gi_t.merge_plan is not None:
             # windowed doy/5D groupings: the merge engine sorts each window-1
             # list once instead of the window-fold amplified gather
             af, hist_q = _algos.eqm_train_windowed(refa, hista, gi_t.merge_plan, q_t, kind=kind)
@@ -101,6 +108,8 @@ class EmpiricalQuantileMapping(TrainAdjust):
         )
         if hist_q_raw is not None:
             ds["hist_q_raw"] = grouped_var(hist_q_raw, bdims, bcoords, gi, qdim, name="hist_q_raw", attrs={"standard_name": "Model quantiles", "long_name": "Quantiles of model on the reference period, before preprocess"})
+        if adapt_freq_thresh is not None:
+            _add_preprocess_vars(ds, (P0_ref, P0_hist, pth), bdims, bcoords, gi)
 
         return ds, {
             "group": group,
@@ -157,7 +166,7 @@ class EmpiricalQuantileMapping(TrainAdjust):
         group: Grouper = self.group
         gi = group.indexes(sim.time)
         sima, _, _ = to_compute(sim)
-        _check_adjust_preprocess(self)
+        sima = _adjust_preprocess(self, sima, sim, gi)
 
         hist_q = as_tensor(self.ds["hist_q"].data, device=sima.device)
         af = as_tensor(self.ds["af"].data, device=sima.device)
@@ -226,7 +235,7 @@ class QuantileDeltaMapping(EmpiricalQuantileMapping):
             )
         gi_rank = gi if rank_window else Grouper(group.name).indexes(sim.time)
         sima, _, _ = to_compute(sim)
-        _check_adjust_preprocess(self)
+        sima = _adjust_preprocess(self, sima, sim, gi)
         dev = sima.device
 
         af = as_tensor(self.ds["af"].data, device=dev)
@@ -270,25 +279,48 @@ class QuantileDeltaMapping(EmpiricalQuantileMapping):
         return out["scen"]
 
 
-def _check_preprocess(adapt_freq_thresh, jitter_under_thresh_value, jitter_over_thresh_value, jitter_over_thresh_upper_bnd):
-    """Training-time preprocessing (reference ``_adjustment.py:32-83``) needs
-    ``processing.py``, which is not ported yet."""
+def _apply_jitter(hista, hist_da, jitter_under_thresh_value, jitter_over_thresh_value, jitter_over_thresh_upper_bnd):
+    """Optional jitter preprocessing of hist (reference _adjustment.py:55-68)."""
     if (jitter_over_thresh_value is None) ^ (jitter_over_thresh_upper_bnd is None):
         raise ValueError(
             "`jitter_over_thresh_value` and `jitter_over_thresh_upper_bnd` must both "
             "be specified or both be `None`."
         )
     if jitter_under_thresh_value or jitter_over_thresh_value:
-        raise NotImplementedError("jitter preprocessing is not ported to xsdba_tpu_torch yet (ROADMAP A7).")
-    if adapt_freq_thresh is not None:
-        raise NotImplementedError("adapt_freq_thresh is not ported to xsdba_tpu_torch yet (ROADMAP A7).")
+        lower = convert_units_to(jitter_under_thresh_value, hist_da.units) if jitter_under_thresh_value else None
+        upper = convert_units_to(jitter_over_thresh_value, hist_da.units) if jitter_over_thresh_value else None
+        bnd = convert_units_to(jitter_over_thresh_upper_bnd, hist_da.units) if jitter_over_thresh_value else None
+        hista = _jitter_core(hista, lower, upper, bnd)
+    return hista
 
 
-def _check_adjust_preprocess(obj):
-    """Adjust-time adapt_freq reuse of trained P0/pth (reference
-    ``_adjustment.py:639-645``) — not ported yet."""
-    if obj.get("adapt_freq_thresh") is not None:
-        raise NotImplementedError("adapt_freq_thresh is not ported to xsdba_tpu_torch yet (ROADMAP A7).")
+def _preprocess(refa, hista, gi, hist_da, adapt_freq_thresh):
+    """Training-time frequency adaptation (reference ``_adjustment.py:32-83``;
+    jitter is :func:`_apply_jitter`, applied before): returns the gathered
+    (refg, adapted histg) and the per-group P0_ref, P0_hist and pth."""
+    refg = gather_groups(refa, gi.gather_idx)
+    histg = gather_groups(hista, gi.gather_idx)
+    thresh = convert_units_to(adapt_freq_thresh, hist_da.units)
+    histg_ad, P0_ref, P0_hist, pth, _ = _adapt_freq_grouped(refg, histg, thresh)
+    return refg, histg_ad, P0_ref, P0_hist, pth
+
+
+def _add_preprocess_vars(ds, values, bdims, bcoords, gi):
+    """The trained P0_ref, P0_hist and pth of ``adapt_freq_thresh``."""
+    for name, v in zip(("P0_ref", "P0_hist", "pth"), values):
+        ds[name] = grouped_var(v, bdims, bcoords, gi, name=name)
+
+
+def _adjust_preprocess(obj, sima, sim_da, gi):
+    """Adjust-time frequency adaptation of sim with the trained P0 and pth
+    (reference ``_adjustment.py:639-645``), over the grouping without its
+    window, as the reference re-runs adapt_freq on sim."""
+    if obj.get("adapt_freq_thresh") is None:
+        return sima
+    thresh = convert_units_to(obj.adapt_freq_thresh, obj.train_units)
+    gi_time = Grouper(obj.group.name).indexes(sim_da.time)
+    P0_ref, P0_hist, pth = (as_tensor(obj.ds[k].data, device=sima.device) for k in ("P0_ref", "P0_hist", "pth"))
+    return _adapt_freq_apply_core(sima, gi_time, thresh, P0_ref, P0_hist, pth)
 
 
 def _use_reference_interp(mode: str, gi) -> bool:

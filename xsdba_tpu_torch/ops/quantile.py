@@ -28,12 +28,15 @@ __all__ = [
 ]
 
 
-def _virtual_index(valid_count, quantiles, alpha: float, beta: float):
+def _virtual_index(valid_count, quantiles, alpha: float, beta: float, fused: bool = True):
     # Reference nbutils.py:130: n*q + (alpha + q*(1-alpha-beta)) - 1, with
     # both products fused as the JAX package's compiled programs fuse them.
     # A power-of-two (or zero) 1-alpha-beta, such as the default -1, makes
     # q*(1-alpha-beta) exact, where the plain expression is the fused one.
+    # ``fused=False`` rounds every operation, as its eager callers do.
     k = 1 - alpha - beta
+    if not fused:
+        return valid_count * quantiles + (alpha + quantiles * k) - 1
     if k == 0 or math.frexp(k)[0] in (0.5, -0.5):
         offset = alpha + quantiles * k
     else:
@@ -42,14 +45,17 @@ def _virtual_index(valid_count, quantiles, alpha: float, beta: float):
     return fma(valid_count, quantiles, offset) - 1
 
 
-def _lerp(left, right, gamma):
-    # Symmetric lerp for fp accuracy — mirrors nbutils.py:77-106 (products fused).
+def _lerp(left, right, gamma, fused: bool = True):
+    # Symmetric lerp for fp accuracy — mirrors nbutils.py:77-106 (products
+    # fused unless ``fused=False``).
     diff = right - left
+    if not fused:
+        return torch.where(gamma >= 0.5, right - diff * (1 - gamma), left + diff * gamma)
     out = fma(diff, gamma, left)
     return torch.where(gamma >= 0.5, fma(-diff, 1 - gamma, right), out)
 
 
-def _quantile_on_sorted(sorted_x, valid, quantiles, alpha, beta, sentinel: str = "nan"):
+def _quantile_on_sorted(sorted_x, valid, quantiles, alpha, beta, sentinel: str = "nan", fused: bool = True):
     """Type-7 quantiles given a pre-sorted (NaNs-last) last axis.
 
     sorted_x: [..., n]; valid: [...] count of non-NaN entries;
@@ -59,13 +65,15 @@ def _quantile_on_sorted(sorted_x, valid, quantiles, alpha, beta, sentinel: str =
     ``sentinel="inf"`` marks padding beyond ``valid`` as +inf instead of NaN
     (the merged-row layout of ``ops/merge.py``); the out-of-range clip then
     catches +inf too, and rows with no valid value give NaN explicitly.
+    ``fused=False`` rounds the type-7 arithmetic unfused (the JAX package's
+    eager callers).
     """
     n = sorted_x.shape[-1]
     v = valid[..., None].to(sorted_x.dtype)
     # Bounds handling (nbutils.py:30-68): above valid-1 -> last element of the
     # *full* row (index -1, a NaN/+inf pad — later clipped to the max valid
     # value); below 0 -> first element.
-    vi = _virtual_index(v, quantiles, alpha, beta)
+    vi = _virtual_index(v, quantiles, alpha, beta, fused)
     prev = torch.floor(vi)
     above = vi >= v - 1
     below = vi < 0
@@ -83,7 +91,7 @@ def _quantile_on_sorted(sorted_x, valid, quantiles, alpha, beta, sentinel: str =
     right = take(next_idx)
     max_idx = torch.clamp(valid[..., None] - 1, 0, n - 1).to(torch.int64)
     max_valid = take(max_idx)
-    interp = _lerp(left, right, gamma)
+    interp = _lerp(left, right, gamma, fused)
     # NaN range clip: replace NaN interpolation by the max valid value
     # (nbutils.py:144-147).  All-NaN rows keep NaN (max_valid NaN there).
     if sentinel == "inf":
@@ -93,26 +101,27 @@ def _quantile_on_sorted(sorted_x, valid, quantiles, alpha, beta, sentinel: str =
     return torch.where(torch.isnan(interp), max_valid, interp)
 
 
-def nan_quantile(x, quantiles, axis: int = -1, alpha: float = 1.0, beta: float = 1.0):
+def nan_quantile(x, quantiles, axis: int = -1, alpha: float = 1.0, beta: float = 1.0, fused: bool = True):
     """NaN-aware quantiles along ``axis``; matches ``np.nanquantile`` for
     ``alpha=beta=1`` (reference ``nbutils.py:113-148``).
 
     ``quantiles`` is a 1-D array of nq probabilities.  The reduced axis is
-    replaced by a trailing ``nq`` axis.
+    replaced by a trailing ``nq`` axis.  ``fused`` as for
+    :func:`_quantile_on_sorted`.
     """
     x = as_tensor(x)
     quantiles = as_tensor(quantiles, dtype=x.dtype, device=x.device)
     x = torch.movedim(x, axis, -1)
     sorted_x = torch.sort(x, dim=-1).values  # NaNs sort to the end
     valid = (~torch.isnan(x)).sum(dim=-1)
-    return _quantile_on_sorted(sorted_x, valid, quantiles, alpha, beta)
+    return _quantile_on_sorted(sorted_x, valid, quantiles, alpha, beta, fused=fused)
 
 
-def vecquantiles(x, ranks, axis: int = -1, alpha: float = 1.0, beta: float = 1.0):
+def vecquantiles(x, ranks, axis: int = -1, alpha: float = 1.0, beta: float = 1.0, fused: bool = True):
     """Quantile where the probability differs per row (reference
     ``nbutils.py:151-195``): ``x`` [..., n], ``ranks`` [...] -> [...].
 
-    NaN rank yields NaN.
+    NaN rank yields NaN; ``fused`` as for :func:`_quantile_on_sorted`.
     """
     x = as_tensor(x)
     ranks = as_tensor(ranks, dtype=x.dtype, device=x.device)
@@ -120,7 +129,7 @@ def vecquantiles(x, ranks, axis: int = -1, alpha: float = 1.0, beta: float = 1.0
     sorted_x = torch.sort(x, dim=-1).values
     valid = (~torch.isnan(x)).sum(dim=-1)
     q = torch.nan_to_num(ranks, nan=0.0)[..., None]
-    out = _quantile_on_sorted(sorted_x, valid, q, alpha, beta)[..., 0]
+    out = _quantile_on_sorted(sorted_x, valid, q, alpha, beta, fused=fused)[..., 0]
     return torch.where(torch.isnan(ranks), torch.nan, out)
 
 
