@@ -96,6 +96,26 @@ Phases, each reported on lines of its own:
    1e-5, scen at 1e-5 but for the values whose nearest node moved (rank
    flips, counted and printed, at most 1 %); then the LOESS trend alone at
    [512, 54750] on the card against the CPU port, interior and edges apart;
+   5e. second-order and multivariate transforms through the public calls on
+   numpy inputs (:func:`second_order_phase`): ``ExtremeValues.train(ref,
+   hist, cluster_thresh="1 mm/d", q_thresh=0.95).adjust(sim, scen,
+   frac=0.70, power=3)`` on config 2's data with 5d's DQM ``scen`` as the
+   first-order scen: its outputs on the card, finite wherever scen is, the
+   ``fma`` kernel launched and no other (its table lookup has 2874 nodes:
+   plain PyTorch, as in the JAX package), against the CPU port on the first
+   8 sites (the threshold at 1e-6, the fitted ref shape within 5e-3 with
+   the sites beyond it counted, factors and scen at 1e-2 relative: ROADMAP
+   C18), its cores, the GPD fit alone and the public calls timed, the fit,
+   the train core and the adjust core profiled;
+   ``PrincipalComponents(crd_dim="multivar", group="time.month")`` on
+   :func:`mbcn_problem` at 512 sites (config 4's recipe), both orientations,
+   against the CPU port at 1e-3 (the eigensolvers' float32 rounding), no
+   kernel of the port, ``pc_transform_matrix`` and the public calls timed;
+   ``OTC`` and ``dOTC`` (also ``kind={"pr": "*"}``) at one site, monthly,
+   estimated bin widths, ``solver="emd"`` (:func:`ot_problem`): the plans
+   are host work in both packages, the result a tensor on the card, equal
+   to the CPU port's on the same stream seed; the occupied bins a month
+   printed; ``solver="sinkhorn"`` once, its plans on the card;
 6. times (2 warm-ups, median of 5 and the spread): the fused QDM, windowed
    EQM (merge) and selection steps in gridpoint-years/s (CUDA events), the
    public calls on the same data (host clock), each kernel against its twin
@@ -159,15 +179,19 @@ from xsdba_tpu_torch.models._algos import (
     qdm_train_adjust_core,
     qm_adjust_core,
 )
-from xsdba_tpu_torch.models import mbcn
+from xsdba_tpu_torch.models import extremes, mbcn, otc
+from xsdba_tpu_torch.models import pca as pca_mod
 from xsdba_tpu_torch.models.dqm import _scaled
 from xsdba_tpu_torch.models._wrap import device_brackets
 from xsdba_tpu_torch.ops import merge, sort
+from xsdba_tpu_torch.ops.clusters import cluster_maxima
 from xsdba_tpu_torch.ops.correction import equally_spaced_nodes
 from xsdba_tpu_torch.ops.cuda import _build, fma_kernel, interp_kernel
 from xsdba_tpu_torch.ops.detrend import grouped_polyfit_trend
+from xsdba_tpu_torch.ops.fitting import gpd_fit_ml
 from xsdba_tpu_torch.ops.interp import _compact_nan_pairs
 from xsdba_tpu_torch.ops.loess import loess_smoothing
+from xsdba_tpu_torch.ops.pca import pc_transform_matrix
 from xsdba_tpu_torch.ops.quantile import merge_slab
 from xsdba_tpu_torch.ops.rotation import rand_rot_matrix
 from xsdba_tpu_torch.ops.segment import gather_groups
@@ -201,6 +225,19 @@ LOESS_KW = dict(f=0.2, niter=1, d=0)
 # are held at FLIP_RTOL, the flips to at most MAX_FLIPS of the values
 FLIP_RTOL, MAX_FLIPS = 1e-5, 0.01
 LOESS_RTOL = 1e-5
+# ExtremeValues on config 2's first-order scen (the current defaults, passed
+# explicitly).  Against the CPU port, every site checked: the threshold at
+# EV_THRESH_RTOL, the fitted ref shape within EV_FIT_TOL (the GPD fit is
+# fixed only to about sqrt(eps), ROADMAP C18), the factors and scen at
+# EV_RTOL
+EV_TRAIN = dict(cluster_thresh="1 mm/d", q_thresh=0.95)
+EV_ADJUST = dict(frac=0.70, power=3)
+EV_THRESH_RTOL, EV_FIT_TOL, EV_RTOL = 1e-6, 5e-3, 1e-2
+# PrincipalComponents at config 4's recipe (mbcn_problem(512)): the card's
+# eigensolver against the CPU's, float32
+PCA_SITES, PCA_RTOL = 512, 1e-3
+# OTC / dOTC: one site, the e2e recipe's two variables over 30 years
+OT_YEARS, OT_SEED = 30, 11
 # H100 SXM peaks: HBM bytes/s, float32 FLOP/s
 PEAK_BYTES, PEAK_OPS = 3.35e12, 67e12
 # a kernel's time: the mean of KERNEL_BATCH back-to-back calls, queued
@@ -321,6 +358,39 @@ def fma_inputs(n, dtype, seed=0, device="cpu"):
     return tuple(torch.from_numpy(x).to(device) for x in (a, b, c))
 
 
+def extremes_fma_inputs(S, T, dtype, seed=0, device="cpu"):
+    """``fma``'s operands on ExtremeValues' path at its shapes and strides,
+    with values like the path's: {label: (a, b, c)}.  The golden-section
+    points (``ops/fitting.py:gpd_fit_ml``: the 0-d ratio expanded over a
+    [S, 1] bracket width, as the fit writes them), the CDF's ``1 + c z``
+    (c [S, 1] expanded over z [S, T], zeros for the dry days), the quantile
+    function's ``loc + scale z`` (scale and loc [S, 1] expanded over
+    [S, T], z NaN off the tail) and the final blend ``transition * scen_ext
+    + (1 - transition) * scen`` ([S, T] each, transition 0 below the
+    threshold)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    u = lambda *shape: torch.rand(shape, generator=g, device=device, dtype=dtype)  # noqa: E731
+    gr = torch.tensor((5 ** 0.5 - 1) / 2, dtype=dtype, device=device)
+    lo = -u(S, 1)
+    width = 2 * u(S, 1)
+    hi = lo + width
+    c = u(S, 1) * 0.8 - 0.3
+    z = torch.where(u(S, T) < 0.4, 0.0, -torch.log(u(S, T)))
+    z[:, ::97] = torch.nan
+    q = torch.where(u(S, T) < 0.95, torch.nan, u(S, T))
+    zq = ((1 - q) ** -c - 1) / c
+    scale, loc = 1 + 9 * u(S, 1), 5 + 25 * u(S, 1)
+    tr = torch.clamp(u(S, T) * 2 - 1.5, min=0) ** 3
+    ext, scen = 40 * u(S, T), 30 * u(S, T)
+    return {
+        "golden-section point c1": (-gr.expand_as(width), width, hi),
+        "golden-section point c2": (gr.expand_as(width), width, lo),
+        "GPD CDF 1 + c z": (c.expand_as(z), z, torch.ones_like(z)),
+        "GPD PPF loc + scale z": (scale.expand_as(zq), zq, loc.expand_as(zq)),
+        "final blend": (tr, ext, (1 - tr) * scen),
+    }
+
+
 def example_problem(n_sites, n_years, seed=0, start="2000-01-01"):
     """The headline data recipe (``__graft_entry__._example_problem``):
     numpy f32 ref ~ N(10, 2), hist ~ N(12, 3), sim ~ N(13, 3), drawn in turn
@@ -433,6 +503,66 @@ def config2_adjust(dqm, sim, t):
     FFT core); a Dataset with ``scen`` and ``trend``."""
     with xp.set_options(extra_output=True):
         return dqm.adjust(_pr_da(sim, t, "sim"), interp="nearest", detrend=xp.detrending.LoessDetrend(group="time", kind="*", **LOESS_KW))
+
+
+def extremes_run(ref, hist, sim, scen, t):
+    """``ExtremeValues.train(ref, hist).adjust(sim, scen)`` through the public
+    calls on config 2's pr: (trained, second-order scen)."""
+    ev = xp.ExtremeValues.train(_pr_da(ref, t, "ref"), _pr_da(hist, t, "hist"), **EV_TRAIN)
+    return ev, ev.adjust(_pr_da(sim, t, "sim"), _pr_da(scen, t, "scen"), **EV_ADJUST)
+
+
+def pca_run(ref, hist, sim, orientation):
+    """``PrincipalComponents`` over ``multivar``, monthly: (trained, scen)."""
+    pca = xp.PrincipalComponents.train(ref, hist, crd_dim="multivar", group="time.month", best_orientation=orientation)
+    return pca, pca.adjust(sim)
+
+
+def ot_problem(n_years=OT_YEARS):
+    """One site's tas (K) and pr (mm/d) drawn as the e2e cases draw them
+    (``tests/e2e_cases.py``: tas ~ N(mean, 1), pr ~ Gamma(2, 2)) over
+    ``n_years`` noleap years from numpy seed 6: (ref, hist, sim) stacked
+    over ``multivar``, numpy-backed."""
+    T = 365 * n_years
+    rng = np.random.default_rng(6)
+
+    def stacked(mean, start):
+        t = xp.date_range(start, periods=T, freq="D", calendar="noleap")
+        return xp.processing.stack_variables(xp.Dataset({
+            "tas": xp.DataArray(rng.normal(mean, 1, T), ("time",), {"time": t}, {"units": "K"}, "tas"),
+            "pr": xp.DataArray(rng.gamma(2, 2, T), ("time",), {"time": t}, {"units": "mm/d"}, "pr"),
+        }))
+
+    return stacked(0.0, "1981-01-01"), stacked(1.0, "1981-01-01"), stacked(1.5, "2041-01-01")
+
+
+# the transports phase 5e runs: (class, keywords); bin widths estimated
+OT_RUNS = {
+    "OTC": (xp.OTC, dict(group="time.month", solver="emd")),
+    "dOTC": (xp.dOTC, dict(group="time.month", solver="emd")),
+    "dOTC kind pr *": (xp.dOTC, dict(group="time.month", solver="emd", kind={"pr": "*"}, cov_factor="std")),
+}
+
+
+def ot_run(name, ref, hist, sim, **extra):
+    """One transport of :data:`OT_RUNS` through the public call, drawing
+    from the stream seeded with ``OT_SEED``."""
+    cls, kw = OT_RUNS[name]
+    xp.utils.rng.seed(OT_SEED)
+    return cls.adjust(*((ref, hist) if cls is xp.OTC else (ref, hist, sim)), **{**kw, **extra})
+
+
+def occupied_bins(ref, hist, group="time.month"):
+    """Occupied histogram bins a group of hist and of ref, at the bin widths
+    OTC estimates for that group."""
+    g = xp.Grouper(group)
+    blocks = [otc._grouped_PV(otc._host(d, "multivar"), g.indexes(d.time)) for d in (hist, ref)]
+    out = []
+    for X, Y in zip(*blocks):
+        X, Y = X[np.isfinite(X).all(axis=1)], Y[np.isfinite(Y).all(axis=1)]
+        width, origin = otc._BinSpec(None, None).resolve([Y, X])
+        out.append(tuple(len(otc._support(P, width, origin).weights) for P in (X, Y)))
+    return out
 
 
 def dqm_doy_train(ref, hist, t):
@@ -755,6 +885,147 @@ def _counts():
                 interp_bracketed=interp_kernel.launches_bracketed, sort_rows_with_payload=sort.launches, fma=fma_kernel.launches)
 
 
+def _peak(dev, fn):
+    """(fn's result, its peak device memory above what was held before it, bytes)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated(dev) - base
+
+
+def second_order_phase(dev, ours, tp, pr_np, scen0):
+    """Phase 5e: ExtremeValues on config 2's first-order ``scen0`` (a CUDA
+    tensor), PrincipalComponents at 512 sites, OTC / dOTC at one site; each
+    through the public calls, on the card, held against the CPU port, timed.
+    Returns the launch counts of each path."""
+    pref_np, phist_np, psim_np = pr_np
+    counts = {}
+    cut = slice(0, CHECK_SITES)
+
+    # ExtremeValues: 512 sites x 150 years of pr
+    _reset_counts()
+    t0 = time.perf_counter()
+    (ev, ev_out), peak = _peak(dev, lambda: extremes_run(pref_np, phist_np, psim_np, scen0, tp))
+    first_s = time.perf_counter() - t0
+    counts["ExtremeValues"] = c = _counts()
+    out = ev_out.data
+    assert out.is_cuda and out.dtype == torch.float32 and out.shape == scen0.shape, (out.device, out.dtype, tuple(out.shape))
+    assert bool(torch.isfinite(out)[torch.isfinite(scen0)].all()), "ExtremeValues: non-finite where scen is finite"
+    assert c["fma"] >= 1 and not any(n for k, n in c.items() if k != "fma"), f"ExtremeValues: launches {c}"
+    with xp.set_options(device="cpu"):
+        ev_cpu, ev_cpu_out = extremes_run(pref_np[cut], phist_np[cut], psim_np[cut], scen0[cut].cpu(), tp)
+    card = {k: ev.ds[k].data[cut].cpu() for k in ("thresh", "ref_params", "af", "px_hist")}
+    cpu = {k: ev_cpu.ds[k].data for k in card}
+    torch.testing.assert_close(card["thresh"], cpu["thresh"], rtol=EV_THRESH_RTOL, atol=0)
+    c_err = _max_abs(card["ref_params"][:, 0], cpu["ref_params"][:, 0])
+    af_err = float(((card["af"] - cpu["af"]).abs() / cpu["af"].abs()).nan_to_num(0.0).max())
+    scen_err = float(((ev_out.data[cut].cpu() - ev_cpu_out.data).abs() / (ev_cpu_out.data.abs() + 1e-6)).max())
+    assert c_err <= EV_FIT_TOL, f"ExtremeValues: fitted ref shapes moved by {c_err:.3g}: {card['ref_params'][:, 0].tolist()} against {cpu['ref_params'][:, 0].tolist()}"
+    assert af_err <= EV_RTOL and scen_err <= EV_RTOL, f"ExtremeValues vs the CPU port: af {af_err:.3g}, scen {scen_err:.3g} (relative)"
+    print(f"[second-order] ExtremeValues({EV_TRAIN}).adjust({EV_ADJUST}) on config 2's DQM scen, numpy {tuple(out.shape)} f32 -> {out.device}: "
+          f"finite where scen is, launches {({k: n for k, n in c.items() if n})}; train+adjust {first_s:.3f} s (first call, host clock), peak {peak / 2**30:.3f} GiB above the held; "
+          f"first {CHECK_SITES} sites vs the CPU port: thresh max rel diff {float(((card['thresh'] - cpu['thresh']).abs() / cpu['thresh']).max()):.3g}, "
+          f"fitted ref shape max abs diff {c_err:.3g}, af max rel diff {af_err:.3g}, "
+          f"scen max rel diff {scen_err:.3g}; second-order values differing from scen: {float((out != scen0).float().mean()):.4f} of all", flush=True)
+    del ev_cpu, ev_cpu_out
+
+    refa, hista, sima = (torch.from_numpy(a).to(dev) for a in pr_np)
+    T = refa.shape[-1]
+    N, C = int((1 - EV_TRAIN["q_thresh"]) * T * 1.05), extremes._cluster_bound(T, EV_TRAIN["q_thresh"])
+    tables = [torch.as_tensor(ev.ds[k].data, device=dev) for k in ("px_hist", "af", "thresh")]
+    tables[2] = tables[2][..., 0]
+
+    def ev_train_step():
+        return extremes._extremes_train_core(refa, hista, 1.0, EV_TRAIN["q_thresh"], None, n_out=N, max_clusters=C)
+
+    def ev_adjust_step():
+        return extremes._extremes_adjust_core(sima, scen0, *tables, 1.0, EV_ADJUST["frac"], EV_ADJUST["power"], interp="linear", extrapolation="constant", max_clusters=C)
+
+    for label, step in (("train core (_extremes_train_core)", ev_train_step), ("adjust core (_extremes_adjust_core)", ev_adjust_step)):
+        summ = _summary(_time_ms(step))
+        _, peak = _peak(dev, step)
+        print(f"[time] ExtremeValues {label}, {PR_SITES} sites x {PR_YEARS} yr, {N} table nodes, {C} clusters: "
+              f"{PR_SITES * PR_YEARS / (summ['median_ms'] / 1e3):,.0f} gridpoint-years/s ({_fmt(summ)}); peak {peak / 2**30:.3f} GiB above the held", flush=True)
+    # the GPD fit alone, on ref's cluster maxima: the golden-section steps are ~30 launches each
+    mx = cluster_maxima(refa, tables[2][..., None], 1.0, max_clusters=C) - tables[2][..., None]
+    summ = _summary(_time_ms(lambda: gpd_fit_ml(mx)))
+    print(f"[time] ExtremeValues GPD fit alone (gpd_fit_ml) on {tuple(mx.shape)} cluster maxima: {_fmt(summ)}", flush=True)
+    _profile("one GPD fit (gpd_fit_ml)", lambda: gpd_fit_ml(mx), ours)
+    _profile("one ExtremeValues train core", ev_train_step, ours)
+    del mx
+    scen_da = _pr_da(scen0, tp, "scen")
+    tr = _summary(_host_ms(lambda: xp.ExtremeValues.train(_pr_da(pref_np, tp, "ref"), _pr_da(phist_np, tp, "hist"), **EV_TRAIN)))
+    ad = _summary(_host_ms(lambda: ev.adjust(_pr_da(psim_np, tp, "sim"), scen_da, **EV_ADJUST)))
+    print(f"[time] public ExtremeValues on numpy inputs (host clock): train {_fmt(tr)}; adjust {_fmt(ad)}", flush=True)
+    _profile("one ExtremeValues adjust core", ev_adjust_step, ours)
+    del refa, hista, sima, tables, ev, ev_out, out
+    torch.cuda.empty_cache()
+
+    # PrincipalComponents: config 4's recipe at 512 sites, both orientations
+    pref, phist, psim = mbcn_problem(PCA_SITES)
+    for orientation in ("simple", "full"):
+        _reset_counts()
+        t0 = time.perf_counter()
+        (pca, scen), peak = _peak(dev, lambda: pca_run(pref, phist, psim, orientation))
+        first_s = time.perf_counter() - t0
+        counts[f"PrincipalComponents {orientation}"] = c = _counts()
+        assert scen.data.is_cuda and scen.dims == psim.dims and bool(torch.isfinite(scen.data).all()), f"PCA {orientation}: {scen.data.device}"
+        assert not any(c.values()), f"PCA {orientation}: a kernel of the port ran: {c}"
+        with xp.set_options(device="cpu"):
+            pca_cpu, scen_cpu = pca_run(*(first_sites(d, CHECK_SITES) for d in (pref, phist, psim)), orientation)
+        t_err = _max_abs(pca.ds["trans"].data[cut].cpu(), pca_cpu.ds["trans"].data)
+        s_err = _max_abs(scen.data[cut].cpu(), scen_cpu.data)
+        torch.testing.assert_close(pca.ds["trans"].data[cut].cpu(), pca_cpu.ds["trans"].data, rtol=PCA_RTOL, atol=PCA_RTOL)
+        torch.testing.assert_close(scen.data[cut].cpu(), scen_cpu.data, rtol=PCA_RTOL, atol=PCA_RTOL)
+        blocks = [pca_mod._blocks_MP(d, xp.Grouper("time.month").indexes(d.time), "multivar") for d in (pref, phist)]
+        core = _summary(_time_ms(lambda: pc_transform_matrix(*blocks, best_orientation=orientation)))
+        _, core_peak = _peak(dev, lambda: pc_transform_matrix(*blocks, best_orientation=orientation))
+        api = _summary(_host_ms(lambda: pca_run(pref, phist, psim, orientation)))
+        print(f"[second-order] PrincipalComponents({orientation}) monthly on numpy {tuple(scen.data.shape)} f32 -> {scen.data.device}: finite, "
+              f"no kernel of the port; {first_s:.3f} s first train+adjust, peak {peak / 2**30:.3f} GiB above the held; first {CHECK_SITES} sites vs the "
+              f"CPU port: trans max abs diff {t_err:.3g}, scen max abs diff {s_err:.3g}", flush=True)
+        print(f"[time] PrincipalComponents({orientation}) {PCA_SITES} sites x {MBCN_VARS} variables x {MBCN_YEARS} yr: pc_transform_matrix on "
+              f"{tuple(blocks[0].shape)} blocks {_fmt(core)}, peak {core_peak / 2**30:.3f} GiB; public train+adjust (host clock) {_fmt(api)}", flush=True)
+        del pca, scen, blocks
+    del pref, phist, psim
+    torch.cuda.empty_cache()
+
+    # OTC / dOTC at one site: the plans solve on the host; the result on the card
+    oref, ohist, osim = ot_problem()
+    bins = occupied_bins(oref, ohist)
+    print(f"[second-order] OT problem: 1 site x 2 variables x {OT_YEARS} yr, monthly; occupied bins a month (hist, ref): {bins}", flush=True)
+    for name in OT_RUNS:
+        _reset_counts()
+        t0 = time.perf_counter()
+        got = ot_run(name, oref, ohist, osim)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        counts[name] = c = _counts()
+        assert got.data.is_cuda and bool(torch.isfinite(got.data).all()) and not any(c.values()), f"{name}: {got.data.device}, launches {c}"
+        with xp.set_options(device="cpu"):
+            want = ot_run(name, oref, ohist, osim)
+        assert torch.equal(got.data.cpu(), want.data), f"{name}: the card's result differs from the CPU port's given the same draws"
+        api = _summary(_host_ms(lambda: ot_run(name, oref, ohist, osim)))
+        print(f"[second-order] {name} on numpy {tuple(got.data.shape)} -> {got.data.device}: finite, equal to the CPU port given the same draws; "
+              f"first call {first_s:.3f} s (the first OTC call builds the EMD library), then {_fmt(api)} "
+              f"(host clock: histograms, 12 exact plans in threads, sampling)", flush=True)
+    _reset_counts()
+    t0 = time.perf_counter()
+    sink = ot_run("OTC", oref, ohist, osim, solver="sinkhorn")
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    counts["OTC sinkhorn"] = _counts()
+    with xp.set_options(device="cpu"):
+        sink_cpu = ot_run("OTC", oref, ohist, osim, solver="sinkhorn")
+    moved = float((sink.data.cpu() != sink_cpu.data).any(dim=0).float().mean())
+    assert sink.data.is_cuda and bool(torch.isfinite(sink.data).all()) and moved <= MAX_FLIPS, f"OTC sinkhorn: {moved:.4f} of the points moved"
+    print(f"[second-order] OTC solver=sinkhorn: plans on the card in PyTorch, {host_s:.3f} s (host clock); {moved:.4f} of the points differ from the "
+          f"CPU port's (a plan's last bits move a draw across a row CDF step)", flush=True)
+    return counts
+
+
 def main() -> int:
     # 1. device
     if not torch.cuda.is_available():
@@ -854,7 +1125,7 @@ def main() -> int:
     # gamma expanded), the same shape on the edge-case values, the QDM step's
     # virtual index ([sites, 12, 1] * [nq] + [nq]) and same-shape lerp, and
     # the selection step's lerp on slices of its [2 * sites, doy, 2 nq + 1]
-    # picks
+    # picks, and ExtremeValues' operands (extremes_fma_inputs)
     kf = (fma_kernel.fma, fma_kernel.fma_reference)
     fa, fc = torch.randn(2, 2 * HEAVY_SITES, 365, NQ, device=dev)
     fb = torch.rand(365, NQ, device=dev)
@@ -876,7 +1147,10 @@ def main() -> int:
         picks = a.reshape(2 * SEL_SITES, 365, 2 * NQ + 1)
         gamma = b[: 2 * SEL_SITES * 365 * NQ].reshape(2 * SEL_SITES, 365, NQ)
         _hold(err, "fma", f"fma {dtype} selection lerp on slices", *kf, picks[..., NQ : 2 * NQ], gamma, picks[..., :NQ])
-    del a, b, c, a2, b2, c2, timed, count, node, lerp, picks, gamma
+        del a, b, c, a2, b2, c2, timed, count, node, lerp, picks, gamma
+        for label, args in extremes_fma_inputs(PR_SITES, 365 * PR_YEARS, dtype, seed=10, device=dev).items():
+            _hold(err, "fma", f"fma {dtype} ExtremeValues {label}", *kf, *args)
+        del args
 
     th, (href_np, hhist_np, hsim_np) = heavy_problem(HEAVY_SITES, HEAVY_YEARS)
     href, hhist, hsim = (torch.from_numpy(a).to(dev) for a in (href_np, hhist_np, hsim_np))
@@ -1190,9 +1464,15 @@ def main() -> int:
           + ", ".join(f"{k} {v:.3g}" for k, v in lo_err.items()), flush=True)
     del lo_card, lo_cpu
 
-    # 6. times
+    # 5e. the second-order and multivariate transforms through the public
+    # calls: ExtremeValues on config 2's DQM scen, PrincipalComponents at 512
+    # sites, OTC / dOTC at one site; each held against the CPU port and timed
     ours = ("interp_rows_kernel", "interp_bracketed_kernel", "fma_strided_kernel", "sort_rows_warp_kernel", "sort_rows_alt_kernel", "build_levels_kernel", "fold_windows_kernel",
             "radix_tile_sort_kernel", "merge_pass_kernel")
+    second_counts = second_order_phase(dev, ours, tp, (pref_np, phist_np, psim_np), dqm_runs["config 2"]["out"]["scen"].data)
+    print(f"[second-order] launches by path (kernels launched at least once): {({p: {k: n for k, n in c.items() if n} for p, c in second_counts.items()})}", flush=True)
+
+    # 6. times
     q = torch.as_tensor(equally_spaced_nodes(NQ), dtype=torch.float32, device=dev)
     idx = [torch.as_tensor(a, device=dev) for a in (gi.gather_idx, gi.group_idx, gi.scatter_slot)]
     brackets = device_brackets(gi, "linear", dev)

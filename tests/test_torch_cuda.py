@@ -758,3 +758,62 @@ def test_loess_on_the_card_against_the_cpu(cuda, n, d, niter):
         got = loess_smoothing(yt.to(cuda), x, f=0.2, niter=niter, d=d).cpu()
         want = loess_smoothing(yt, x, f=0.2, niter=niter, d=d)
         torch.testing.assert_close(got, want, rtol=tol, atol=tol, equal_nan=True)
+
+
+# ------------------------------------------------- second-order transforms
+
+
+def test_extremes_on_the_card_against_the_cpu_port(cuda):
+    """ExtremeValues on config 2's recipe at 4 sites x 20 years, numpy
+    inputs: the fma kernel launched and nothing else, outputs on the card,
+    the threshold equal to the CPU port's at EV_THRESH_RTOL and the other
+    outputs within the fit's precision (ROADMAP C18)."""
+    from chip_smoke import EV_FIT_TOL, EV_RTOL, EV_THRESH_RTOL, extremes_run
+
+    t, (ref, hist, sim) = pr_problem(4, 20)
+    scen = 0.9 * sim
+    fma_kernel.launches = k.launches = k.launches_2d = 0
+    ev, out = extremes_run(ref, hist, sim, scen, t)
+    torch.cuda.synchronize()
+    assert fma_kernel.launches >= 1 and k.launches == k.launches_2d == 0
+    assert out.data.is_cuda and ev.ds["af"].data.is_cuda and bool(torch.isfinite(out.data).all())
+    with xp.set_options(device="cpu"):
+        ev_cpu, out_cpu = extremes_run(ref, hist, sim, scen, t)
+    torch.testing.assert_close(ev.ds["thresh"].data.cpu(), ev_cpu.ds["thresh"].data, rtol=EV_THRESH_RTOL, atol=0)
+    torch.testing.assert_close(ev.ds["ref_params"].data[:, 0].cpu(), ev_cpu.ds["ref_params"].data[:, 0], rtol=0, atol=EV_FIT_TOL)
+    torch.testing.assert_close(out.data.cpu(), out_cpu.data, rtol=EV_RTOL, atol=EV_RTOL)
+
+
+@pytest.mark.parametrize("orientation", ["simple", "full"])
+def test_pca_on_the_card_against_the_cpu_port(cuda, orientation):
+    from chip_smoke import PCA_RTOL, mbcn_problem, pca_run
+
+    ref, hist, sim = mbcn_problem(4)
+    pca, scen = pca_run(ref, hist, sim, orientation)
+    assert scen.data.is_cuda and pca.ds["trans"].data.is_cuda and scen.dims == sim.dims
+    with xp.set_options(device="cpu"):
+        pca_cpu, scen_cpu = pca_run(ref, hist, sim, orientation)
+    torch.testing.assert_close(pca.ds["trans"].data.cpu(), pca_cpu.ds["trans"].data, rtol=PCA_RTOL, atol=PCA_RTOL)
+    torch.testing.assert_close(scen.data.cpu(), scen_cpu.data, rtol=PCA_RTOL, atol=PCA_RTOL)
+
+
+def test_sinkhorn_and_otc_on_the_card(cuda):
+    """The Sinkhorn plan on the card equals the CPU's at 1e-12 (float64);
+    OTC's result comes back on the card and equals the CPU port's given the
+    same draws (the plans are host work)."""
+    from chip_smoke import ot_problem, ot_run
+    from xsdba_tpu_torch.ops.ot import sinkhorn_plan
+
+    rng = np.random.default_rng(8)
+    mu, nu = rng.random(40), rng.random(50)
+    x, y = rng.normal(0, 1, (40, 2)), rng.normal(0.3, 1, (50, 2))
+    C = torch.from_numpy(((x[:, None] - y[None]) ** 2).sum(-1))
+    got = sinkhorn_plan(mu / mu.sum(), nu / nu.sum(), C.to(cuda))
+    assert got.is_cuda
+    torch.testing.assert_close(got.cpu(), sinkhorn_plan(mu / mu.sum(), nu / nu.sum(), C), rtol=0, atol=1e-12)
+    ref, hist, sim = ot_problem(3)
+    out = ot_run("dOTC kind pr *", ref, hist, sim)
+    assert out.data.is_cuda
+    with xp.set_options(device="cpu"):
+        want = ot_run("dOTC kind pr *", ref, hist, sim)
+    assert torch.equal(out.data.cpu(), want.data)

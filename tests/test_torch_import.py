@@ -33,6 +33,7 @@ print(json.dumps({
     "detrending": sorted(xsdba_tpu_torch.detrending.__all__),
     "accelerator": [m for m in new if m.split(".")[0] == "triton"],
     "cuda_initialized": torch.cuda.is_initialized(),
+    "native_lib_loaded": sys.modules["xsdba_tpu_torch.native"]._lib is not None,
 }))
 """
 
@@ -52,13 +53,19 @@ def test_import_loads_no_jax():
         "xsdba_tpu_torch.ops.escore", "xsdba_tpu_torch.ops.rotation", "xsdba_tpu_torch.utils.rng",
         # the DQM slice's
         "xsdba_tpu_torch.detrending", "xsdba_tpu_torch.models.dqm", "xsdba_tpu_torch.ops.detrend", "xsdba_tpu_torch.ops.loess",
+        # the remaining classes' (the EMD solver's library is built at first use, not on import)
+        "xsdba_tpu_torch.models.extremes", "xsdba_tpu_torch.models.pca", "xsdba_tpu_torch.models.otc", "xsdba_tpu_torch.models.sbck",
+        "xsdba_tpu_torch.ops.clusters", "xsdba_tpu_torch.ops.fitting", "xsdba_tpu_torch.ops.pca", "xsdba_tpu_torch.ops.ot",
+        "xsdba_tpu_torch.native",
     }
     assert out["accelerator"] == [] and out["cuda_initialized"] is False
     assert set(out["all"]) >= {
         "date_range", "DataArray", "Dataset", "Grouper", "set_options", "get_option",
         "EmpiricalQuantileMapping", "QuantileDeltaMapping", "MBCn", "NpdfTransform", "Scaling", "LOCI", "processing",
         "DetrendedQuantileMapping", "detrending",
+        "ExtremeValues", "PrincipalComponents", "OTC", "dOTC", "generate_sbck_classes",
     }
+    assert out["native_lib_loaded"] is False
     assert set(out["processing"]) == {
         "standardize", "unstandardize", "reordering", "stack_variables", "unstack_variables", "escore",
         "adapt_freq", "jitter", "jitter_under_thresh", "jitter_over_thresh",

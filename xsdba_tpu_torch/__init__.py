@@ -9,18 +9,35 @@ every Pallas kernel of the JAX package has a hand-written CUDA counterpart:
 the quantile-table lookups (``ops/cuda/interp_kernel.py``, grouped and
 per-row), the windowed quantile's merge engine (``ops/merge.py``) and the
 counting-selection engine's key–payload row sort (``ops/sort.py``).
-Ported so far, seven of the eleven train/adjust classes:
+All eleven train/adjust classes of the JAX package are ported:
 EmpiricalQuantileMapping, QuantileDeltaMapping and DetrendedQuantileMapping,
 with plain and windowed groupings and the dry-day preprocessing of
 precipitation (``processing``'s ``adapt_freq`` and jitter); the detrending
 objects of ``detrending``; the multivariate MBCn and NpdfTransform, with
 ``processing``'s ``stack_variables`` / ``unstack_variables``, ``standardize`` /
-``unstandardize``, ``reordering`` and ``escore``; Scaling and LOCI
-(ROADMAP.md lists the rest).
+``unstandardize``, ``reordering`` and ``escore``; Scaling and LOCI; the
+second-order ExtremeValues (cluster maxima and Generalized Pareto fits);
+PrincipalComponents; OTC and dOTC, whose transport plans are solved on the
+host (the port's own C++ network simplex, built by ``g++`` at first use);
+and the SBCK gateway ``generate_sbck_classes`` (ROADMAP.md lists the
+modules still to port).
 """
 
 from . import detrending, processing
-from .models import LOCI, DetrendedQuantileMapping, EmpiricalQuantileMapping, MBCn, NpdfTransform, QuantileDeltaMapping, Scaling
+from .models import (
+    LOCI,
+    OTC,
+    DetrendedQuantileMapping,
+    EmpiricalQuantileMapping,
+    ExtremeValues,
+    MBCn,
+    NpdfTransform,
+    PrincipalComponents,
+    QuantileDeltaMapping,
+    Scaling,
+    dOTC,
+    generate_sbck_classes,
+)
 from .utils.calendar import TimeIndex, date_range
 from .utils.container import DataArray, Dataset
 from .utils.grouper import Grouper
@@ -33,15 +50,20 @@ __all__ = [
     "Dataset",
     "DetrendedQuantileMapping",
     "EmpiricalQuantileMapping",
+    "ExtremeValues",
     "Grouper",
     "LOCI",
     "MBCn",
     "NpdfTransform",
+    "OTC",
+    "PrincipalComponents",
     "QuantileDeltaMapping",
     "Scaling",
     "TimeIndex",
     "date_range",
+    "dOTC",
     "detrending",
+    "generate_sbck_classes",
     "get_option",
     "processing",
     "set_options",
