@@ -116,6 +116,25 @@ Phases, each reported on lines of its own:
    are host work in both packages, the result a tensor on the card, equal
    to the CPU port's on the same stream seed; the occupied bins a month
    printed; ``solver="sinkhorn"`` once, its plans on the card;
+   5f. BASELINE config 5 (:func:`config5_phase`): QDM adjust plus the
+   validation suite on a 2048-site tile of the 0.25 degree grid (32 lat x
+   64 lon, ``lat`` / ``lon`` coords on the site dim), 150 noleap years of
+   daily f32 tas (the headline recipe, an 8 K seasonal cycle, sim warmed by
+   2 K) and pr (config 2's recipe), in four blocks of 512 sites
+   (:func:`config5_block`): per block, public QDM train + adjust of tas
+   (``kind="+"``) and pr (``kind="*"``, the jitter), monthly, nq 50, then
+   the suite (:func:`config5_suite`: moments, the 98th percentile, trend,
+   annual cycle, the 20-year return value by ML, spell lengths, wet-day
+   frequency and persistence, the Spearman correlation of tas and pr) on
+   ref, sim and scen and its measures of scen against ref; over the tile,
+   the spatial correlogram, the decorrelation length and Scorr of tas.
+   Every output finite where the reference's would be, the QDM kernels'
+   launches asserted (one bracketed lookup an adjust), the first 8 sites
+   equal to the port's CPU path on the same draws (moments, counts and
+   frequencies at 2e-6, the trend at 1e-5 of the suite's largest trend,
+   the return values at 1e-3, the tile's correlogram at 1e-4); the pipeline's gridpoint-years/s, the
+   suite's share, each property's device time, launches and idle share,
+   and peak memory;
 6. times (2 warm-ups, median of 5 and the spread): the fused QDM, windowed
    EQM (merge) and selection steps in gridpoint-years/s (CUDA events), the
    public calls on the same data (host clock), each kernel against its twin
@@ -238,6 +257,13 @@ EV_THRESH_RTOL, EV_FIT_TOL, EV_RTOL = 1e-6, 5e-3, 1e-2
 PCA_SITES, PCA_RTOL = 512, 1e-3
 # OTC / dOTC: one site, the e2e recipe's two variables over 30 years
 OT_YEARS, OT_SEED = 30, 11
+# BASELINE config 5: a 2048-site tile of the 0.25 degree grid (32 x 64
+# points from 40.125 N, 0.125 E), run in blocks of 512 sites; block b's
+# tas comes from numpy seed C5_SEED + b, its pr from C5_SEED + 10 + b
+# (ref, hist) and C5_SEED + 20 + b (sim); checked on the first 8 sites
+C5_LAT, C5_LON, C5_BLOCK, C5_YEARS, C5_SEED = 32, 64, 512, 150, 50
+C5_SITES = C5_LAT * C5_LON
+C5_RTOL, C5_TREND_RTOL, C5_FIT_RTOL, C5_CORRELOGRAM_TOL = 2e-6, 1e-5, 1e-3, 1e-4
 # H100 SXM peaks: HBM bytes/s, float32 FLOP/s
 PEAK_BYTES, PEAK_OPS = 3.35e12, 67e12
 # a kernel's time: the mean of KERNEL_BATCH back-to-back calls, queued
@@ -473,20 +499,21 @@ def mbcn_chunks(n_sites, group):
     return -(-G // chunk), G, Lw, chunk
 
 
-def pr_problem(n_sites, n_years):
+def pr_problem(n_sites, n_years, seeds=(4, 5)):
     """Config 2's data: daily pr, f32, mm/d, over ``n_years`` noleap years
     from 1950: ref 60 % wet days of Gamma(0.9, scale 5) and hist 80 % wet
     days of Gamma(0.7, scale 5) (the drizzle bias), drawn in turn from numpy
-    seed 4; sim hist's recipe from seed 5, times a trend of 1 + 0.3 t / T."""
+    seed ``seeds[0]`` (4); sim hist's recipe from ``seeds[1]`` (5), times a
+    trend of 1 + 0.3 t / T."""
     T = 365 * n_years
     t = xp.date_range("1950-01-01", periods=T, freq="D", calendar="noleap")
 
     def wet(rng, share, k):
         return (rng.gamma(k, 5.0, (n_sites, T)) * (rng.random((n_sites, T)) < share)).astype(np.float32)
 
-    rng = np.random.default_rng(4)
+    rng = np.random.default_rng(seeds[0])
     ref, hist = wet(rng, 0.6, 0.9), wet(rng, 0.8, 0.7)
-    sim = wet(np.random.default_rng(5), 0.8, 0.7) * (1 + 0.3 * np.arange(T, dtype=np.float32) / T)
+    sim = wet(np.random.default_rng(seeds[1]), 0.8, 0.7) * (1 + 0.3 * np.arange(T, dtype=np.float32) / T)
     return t, (ref, hist, sim)
 
 
@@ -574,6 +601,83 @@ def dqm_doy_adjust(dqm, sim, t):
     windowed dayofyear group."""
     with xp.set_options(extra_output=True):
         return dqm.adjust(_da(sim, t, "sim"), detrend=1)
+
+
+def config5_block(b, n_sites=C5_BLOCK, n_years=C5_YEARS):
+    """Block ``b`` of config 5's tile: (time, tas, pr), each a tuple of numpy
+    f32 [n_sites, T] (ref, hist, sim) over ``n_years`` noleap years from
+    1950.  tas (K) is the headline recipe from numpy seed C5_SEED + b plus a
+    seasonal cycle of 8 K amplitude, sim warmed by 2 K over the period (so
+    that the trend and the annual cycle's phase do not measure ties); pr
+    (mm/d) is config 2's recipe from seeds C5_SEED + 10 + b and C5_SEED + 20
+    + b."""
+    t, tas = example_problem(n_sites, n_years, seed=C5_SEED + b, start="1950-01-01")
+    T = len(t)
+    cycle = (8 * np.sin(2 * np.pi * (np.arange(T) - 105) / 365)).astype(np.float32)
+    tas = [a + cycle for a in tas]
+    tas[2] += (2.0 * np.arange(T) / T).astype(np.float32)
+    _, pr = pr_problem(n_sites, n_years, seeds=(C5_SEED + 10 + b, C5_SEED + 20 + b))
+    return t, tuple(tas), pr
+
+
+def config5_coords(b, n_sites=C5_BLOCK):
+    """The ``lat`` / ``lon`` of block ``b``'s sites: the tile's points in
+    row-major order (lat outer), 0.25 degrees apart."""
+    i = np.arange(b * n_sites, (b + 1) * n_sites)
+    return {"lat": 40.125 + 0.25 * (i // C5_LON), "lon": 0.125 + 0.25 * (i % C5_LON)}
+
+
+def config5_qdm(mod, t, tas, pr, coords=None):
+    """Config 5's adjustment through ``mod``'s public calls (the port, or a
+    package with its API): QDM train + adjust of tas (additive) and pr
+    (multiplicative, with the jitter its users pass: ROADMAP C17), monthly,
+    nq 50.  ``tas`` / ``pr``: (ref, hist, sim) arrays or tensors.  Returns
+    ({"ref", "hist", "sim", "scen"}: DataArray) for tas and for pr."""
+    out = []
+    for x, units, name, kw in ((tas, "K", "tas", dict(kind="+")), (pr, "mm/d", "pr", dict(kind="*", jitter_under_thresh_value="0.01 mm/d"))):
+        das = {k: mod.DataArray(a, ("site", "time"), {"time": t, **(coords or {})}, {"units": units}, name) for k, a in zip(("ref", "hist", "sim"), x)}
+        qdm = mod.QuantileDeltaMapping.train(das["ref"], das["hist"], group="time.month", nquantiles=NQ, **kw)
+        das["scen"] = qdm.adjust(das["sim"], interp="linear")
+        out.append(das)
+    return tuple(out)
+
+
+def config5_suite(props, meas, tas, pr):
+    """Config 5's validation suite through ``props`` / ``meas`` (the port's
+    ``properties`` and ``measures``, or a package's with their API) on ref,
+    sim and scen of tas and pr, and its measures of scen against ref:
+    {label: DataArray}; the return values are :func:`config5_return_values`."""
+    out = {}
+    for k in ("ref", "sim", "scen"):
+        t, p = tas[k], pr[k]
+        out[f"{k} mean"] = props.mean(t)
+        out[f"{k} std"] = props.std(t)
+        out[f"{k} q98"] = props.quantile(t, q=0.98)
+        out[f"{k} trend"] = props.trend(t)
+        out[f"{k} amplitude"] = props.annual_cycle_amplitude(t)
+        out[f"{k} phase"] = props.annual_cycle_phase(t)
+        out[f"{k} spell"] = props.spell_length_distribution(p, thresh="1 mm/d")
+        out[f"{k} spell monthly"] = props.spell_length_distribution(p, thresh="1 mm/d", group="time.month")
+        out[f"{k} wet freq"] = props.relative_frequency(p, thresh="1 mm/d")
+        out[f"{k} wet-wet"] = props.transition_probability(p, thresh="1 mm/d")
+        out[f"{k} pr q98"] = props.quantile(p, q=0.98)
+        out[f"{k} corr"] = props.corr_btw_var(t, p)
+    for name in ("mean", "std", "q98", "trend", "amplitude", "spell", "pr q98"):
+        out[f"bias {name}"] = meas.bias(out[f"scen {name}"], out[f"ref {name}"])
+    out["relative_bias wet freq"] = meas.relative_bias(out["scen wet freq"], out["ref wet freq"])
+    out["circular_bias phase"] = meas.circular_bias(out["scen phase"], out["ref phase"])
+    for name in ("rmse", "mae", "annual_cycle_correlation"):
+        out[name] = getattr(meas, name)(tas["scen"], tas["ref"])
+    return out
+
+
+def config5_return_values(props, meas, tas):
+    """The suite's 20-year return values of tas (a GEV fit by maximum
+    likelihood on the annual maxima) of ref, sim and scen, and the bias of
+    scen's against ref's: {label: DataArray}."""
+    out = {f"{k} rv20": props.return_value(tas[k], period=20, method="ML") for k in ("ref", "sim", "scen")}
+    out["bias rv20"] = meas.bias(out["scen rv20"], out["ref rv20"])
+    return out
 
 
 class SeededDraws:
@@ -845,9 +949,10 @@ def _device_us(evt):
     return 0.0
 
 
-def _profile(label, step, ours):
-    """One step under ``torch.profiler``: device busy time, the top 5
-    kernels by device time and the port's own kernels (names in ``ours``)."""
+def _profiled(step):
+    """One run of ``step`` (after one unprofiled run) under
+    ``torch.profiler``: (microseconds between CUDA events around it, its
+    kernels' profiler entries by device time, descending)."""
     from torch.profiler import ProfilerActivity, profile
 
     step()
@@ -858,9 +963,15 @@ def _profile(label, step, ours):
         step()
         end.record()
         torch.cuda.synchronize()
-    wall_us = start.elapsed_time(end) * 1e3
     kernels = [e for e in prof.key_averages() if str(getattr(e, "device_type", "")).endswith("CUDA") and _device_us(e) > 0]
     kernels.sort(key=_device_us, reverse=True)
+    return start.elapsed_time(end) * 1e3, kernels
+
+
+def _profile(label, step, ours):
+    """One step under ``torch.profiler``: device busy time, the top 5
+    kernels by device time and the port's own kernels (names in ``ours``)."""
+    wall_us, kernels = _profiled(step)
     busy_us = sum(_device_us(e) for e in kernels)
     if not kernels:
         print(f"[profile] {label}: torch.profiler recorded no device time", flush=True)
@@ -1024,6 +1135,171 @@ def second_order_phase(dev, ours, tp, pr_np, scen0):
     print(f"[second-order] OTC solver=sinkhorn: plans on the card in PyTorch, {host_s:.3f} s (host clock); {moved:.4f} of the points differ from the "
           f"CPU port's (a plan's last bits move a draw across a row CDF step)", flush=True)
     return counts
+
+
+def _c5_errors(got, want, n):
+    """Per label of the suite, the card's first ``n`` sites against the CPU
+    port's: the largest difference over the larger of the CPU value's
+    largest magnitude and, for a bias, that of the property it subtracts;
+    a trend (ref's is noise about 0) over the suite's largest trend."""
+    errs = {}
+    for key, w in want.items():
+        g = got[key].data
+        g = (g[:n] if g.ndim else g).cpu().double()
+        w = w.data.double()
+        scale = float(w.abs().max())
+        if key.endswith("trend"):
+            scale = max(float(want[f"{k} trend"].data.abs().max()) for k in ("ref", "sim", "scen"))
+        elif key.startswith("bias "):
+            scale = max(scale, float(want[f"ref {key[5:]}"].data.abs().max()))
+        assert bool((torch.isnan(g) == torch.isnan(w)).all()), f"config 5 {key}: NaN where the CPU port has none"
+        errs[key] = float((g - w).abs().nan_to_num(0.0).max()) / max(scale, 1e-30)
+    return errs
+
+
+def config5_phase(dev, ours):
+    """Phase 5f: BASELINE config 5 on the card (see the module docstring).
+    Returns the QDM kernels' launch counts of each block."""
+    from xsdba_tpu_torch import measures, properties
+
+    n_blocks = C5_SITES // C5_BLOCK
+    tile = {"ref": [], "scen": []}
+    block_counts, qdm_s, suite_s = [], [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    gen_s = 0.0
+    for b in range(n_blocks):
+        t0 = time.perf_counter()
+        t, tas_np, pr_np = config5_block(b)
+        tas_d, pr_d = ([torch.from_numpy(a).to(dev) for a in x] for x in (tas_np, pr_np))
+        torch.cuda.synchronize()
+        gen_s += time.perf_counter() - t0
+        coords = config5_coords(b)
+        if b == 0:
+            # first (it also warms the path up): the block with the jitter's draws made alike on the card and the CPU
+            cut = slice(0, CHECK_SITES)
+            with SeededDraws(C5_SEED + b):
+                gtas, gpr = config5_qdm(xp, t, tas_d, pr_d, coords)
+                gsuite = config5_suite(properties, measures, gtas, gpr) | config5_return_values(properties, measures, gtas)
+            with SeededDraws(C5_SEED + b), xp.set_options(device="cpu"):
+                ctas, cpr = config5_qdm(xp, t, [a[cut] for a in tas_np], [a[cut] for a in pr_np])
+                csuite = config5_suite(properties, measures, ctas, cpr) | config5_return_values(properties, measures, ctas)
+            scen_err = max(_max_abs(d["scen"].data[cut].cpu(), c["scen"].data) for d, c in ((gtas, ctas), (gpr, cpr)))
+            torch.testing.assert_close(gtas["scen"].data[cut].cpu(), ctas["scen"].data, **TOL)
+            torch.testing.assert_close(gpr["scen"].data[cut].cpu(), cpr["scen"].data, **TOL)
+            errs = _c5_errors(gsuite, csuite, CHECK_SITES)
+            tol = lambda key: C5_TREND_RTOL if key.endswith("trend") else C5_FIT_RTOL if key.endswith("rv20") else C5_RTOL  # noqa: E731
+            bad = {k: e for k, e in errs.items() if e > tol(k)}
+            assert not bad, f"config 5: the card differs from the CPU port on the first {CHECK_SITES} sites: {bad}"
+            worst = {cls: max(e for k, e in errs.items() if tol(k) == lim) for cls, lim in (("moments, counts, frequencies", C5_RTOL), ("trend", C5_TREND_RTOL), ("rv20", C5_FIT_RTOL))}
+            print(f"[config 5] first {CHECK_SITES} sites of block 0 vs the CPU port (the same draws): scen max abs diff {scen_err:.3g}; "
+                  f"largest scaled difference by class {({k: f'{v:.3g}' for k, v in worst.items()})}", flush=True)
+            del gtas, gpr, gsuite, ctas, cpr, csuite
+        _reset_counts()
+        t0 = time.perf_counter()
+        tas, pr = config5_qdm(xp, t, tas_d, pr_d, coords)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        suite = config5_suite(properties, measures, tas, pr) | config5_return_values(properties, measures, tas)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        counts = _counts()
+        qdm_s.append(t1 - t0)
+        suite_s.append(t2 - t1)
+        block_counts.append({k: n for k, n in counts.items() if n})
+        # one bracketed lookup a QDM adjust (tas and pr), fma in both trains, no other lookup
+        assert counts["interp_bracketed"] == 2 and counts["fma"] >= 1 and counts["interp_table_3d"] == counts["interp_table_2d"] == 0, f"config 5 block {b}: launches {counts}"
+        for v, das in (("tas", tas), ("pr", pr)):
+            sc = das["scen"].data
+            assert sc.device == dev and sc.dtype == torch.float32 and tuple(sc.shape) == (C5_BLOCK, 365 * C5_YEARS) and bool(torch.isfinite(sc).all()), f"config 5 block {b}: {v} scen"
+        for key, da in suite.items():
+            assert da.data.device == dev and bool(torch.isfinite(da.data).all()), f"config 5 block {b}: {key} on {da.data.device}, finite {bool(torch.isfinite(da.data).all())}"
+        tile["ref"].append(tas["ref"].data)
+        tile["scen"].append(tas["scen"].data)
+        print(f"[config 5] block {b}: {C5_BLOCK} sites x {C5_YEARS} yr of tas and pr f32 on {dev}: QDM train+adjust of both {qdm_s[-1]:.3f} s, "
+              f"the suite ({len(suite)} outputs) {suite_s[-1]:.3f} s (host clock, synchronised); every output finite; launches {block_counts[-1]}", flush=True)
+        if b < n_blocks - 1:
+            del tas, pr, suite
+    peak_blocks = torch.cuda.max_memory_allocated(dev) - base
+
+    # the tile: the inter-site Spearman matrix of [2048, 54750] ranks, on the card
+    t = xp.date_range("1950-01-01", periods=365 * C5_YEARS, freq="D", calendar="noleap")
+    tile_da = {k: xp.DataArray(torch.cat(v), ("site", "time"), {"time": t, **config5_coords(0, C5_SITES)}, {"units": "K"}, "tas") for k, v in tile.items()}
+    del tile
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base_tile = torch.cuda.memory_allocated(dev)
+    _reset_counts()
+    t0 = time.perf_counter()
+    spatial = {
+        "correlogram ref": properties.spatial_correlogram(tile_da["ref"]),
+        "correlogram scen": properties.spatial_correlogram(tile_da["scen"]),
+        "decorrelation length scen": properties.decorrelation_length(tile_da["scen"]),
+        "scorr": measures.scorr(tile_da["scen"], tile_da["ref"]),
+    }
+    torch.cuda.synchronize()
+    spatial_s = time.perf_counter() - t0
+    peak_tile = torch.cuda.max_memory_allocated(dev) - base_tile
+    assert not any(_counts().values()), f"config 5 spatial: a kernel of the port ran: {_counts()}"
+    with xp.set_options(device="cpu"):
+        want = properties.spatial_correlogram(xp.DataArray(tile_da["scen"].data.cpu(), ("site", "time"), dict(tile_da["scen"].coords), {"units": "K"}, "tas"))
+    empty = torch.isnan(want.data)   # distance bins that hold no pair of sites
+    for key, da in spatial.items():
+        finite = torch.isfinite(da.data).cpu()
+        assert da.data.device == dev and bool((finite == ~empty).all() if key.startswith("correlogram") else finite.all()), f"config 5 {key}: {da.data.device}, {finite}"
+    cg_err = _max_abs(spatial["correlogram scen"].data.cpu(), want.data)
+    assert cg_err <= C5_CORRELOGRAM_TOL, f"config 5: the tile's correlogram differs from the CPU port's by {cg_err:.3g}"
+    total_s = sum(qdm_s) + sum(suite_s) + spatial_s
+    print(f"[config 5] tile {C5_SITES} sites ({C5_LAT} x {C5_LON} at 0.25 deg): spatial correlogram of ref and scen, decorrelation length, Scorr "
+          f"{spatial_s:.3f} s (host clock, with the host binning); Scorr {float(spatial['scorr'].data):.6f}, decorrelation length range "
+          f"[{float(spatial['decorrelation length scen'].data.min()):.1f}, {float(spatial['decorrelation length scen'].data.max()):.1f}] km; "
+          f"{int(empty.sum())} empty distance bins of {empty.numel()}; correlogram vs the CPU port max abs diff {cg_err:.3g}; peak {peak_tile / 2**30:.3f} GiB above the {base_tile / 2**30:.3f} GiB held", flush=True)
+    print(f"[time] config 5 pipeline (QDM tas+pr and the suite, 4 blocks, then the tile's spatial properties): {total_s:.3f} s, "
+          f"{C5_SITES * C5_YEARS / total_s:,.0f} gridpoint-years/s; the suite {sum(suite_s) + spatial_s:.3f} s "
+          f"({100 * (sum(suite_s) + spatial_s) / total_s:.1f} %), QDM {sum(qdm_s):.3f} s; a block's QDM median "
+          f"{statistics.median(qdm_s):.3f} s, its suite median {statistics.median(suite_s):.3f} s (block 0's check ran first and warmed the path up); data set-up {gen_s:.3f} s (not counted); "
+          f"peak {peak_blocks / 2**30:.3f} GiB above the held over the blocks", flush=True)
+
+    # each property of the last block, and the tile's products, under the profiler
+    calls = {
+        "QDM train+adjust (tas and pr)": lambda: config5_qdm(xp, t, [tas[k].data for k in ("ref", "hist", "sim")], [pr[k].data for k in ("ref", "hist", "sim")], None),
+        "mean": lambda: properties.mean(tas["scen"]),
+        "std": lambda: properties.std(tas["scen"]),
+        "quantile q=0.98": lambda: properties.quantile(tas["scen"], q=0.98),
+        "trend": lambda: properties.trend(tas["scen"]),
+        "annual_cycle_amplitude": lambda: properties.annual_cycle_amplitude(tas["scen"]),
+        "annual_cycle_phase": lambda: properties.annual_cycle_phase(tas["scen"]),
+        "return_value ML": lambda: properties.return_value(tas["scen"], period=20, method="ML"),
+        "spell_length_distribution": lambda: properties.spell_length_distribution(pr["scen"], thresh="1 mm/d"),
+        "spell_length_distribution monthly": lambda: properties.spell_length_distribution(pr["scen"], thresh="1 mm/d", group="time.month"),
+        "relative_frequency": lambda: properties.relative_frequency(pr["scen"], thresh="1 mm/d"),
+        "transition_probability": lambda: properties.transition_probability(pr["scen"], thresh="1 mm/d"),
+        "corr_btw_var": lambda: properties.corr_btw_var(tas["scen"], pr["scen"]),
+        "rmse + mae": lambda: (measures.rmse(tas["scen"], tas["ref"]), measures.mae(tas["scen"], tas["ref"])),
+        "annual_cycle_correlation": lambda: measures.annual_cycle_correlation(tas["scen"], tas["ref"]),
+        "spatial_correlogram (tile)": lambda: properties.spatial_correlogram(tile_da["scen"]),
+        "scorr (tile)": lambda: measures.scorr(tile_da["scen"], tile_da["ref"]),
+    }
+    named = ("return_value ML", "spatial_correlogram (tile)", "corr_btw_var")
+    for label, fn in calls.items():
+        wall_us, kernels = _profiled(fn)
+        busy = sum(_device_us(e) for e in kernels)
+        top = "; top: " + ", ".join(f"{_device_us(e) / 1e3:.3f} ms x{e.count} {e.key[:60]}" for e in kernels[:3]) if label in named else ""
+        print(f"[profile] config 5 {label}: {wall_us / 1e3:.3f} ms between CUDA events, {busy / 1e3:.3f} ms of kernel time over "
+              f"{sum(e.count for e in kernels)} kernels (device idle {100 * max(wall_us - busy, 0) / max(wall_us, 1e-9):.1f} %){top}", flush=True)
+    from xsdba_tpu_torch.ops.fitting import gev_fit_ml
+    from xsdba_tpu_torch.properties import _pairwise_spearman
+
+    ext = tas["scen"].data.reshape(C5_BLOCK, C5_YEARS, 365).amax(dim=-1)   # the annual maxima return_value fits
+    fit = _summary(_time_ms(lambda: gev_fit_ml(ext), reps=3))
+    sp = _summary(_time_ms(lambda: _pairwise_spearman(tile_da["scen"].data), warmup=1, reps=3))
+    print(f"[time] config 5 gev_fit_ml alone on [{C5_BLOCK}, {C5_YEARS}] annual maxima: {_fmt(fit)}; _pairwise_spearman alone on "
+          f"{tuple(tile_da['scen'].data.shape)}: {_fmt(sp)}", flush=True)
+    _profile("config 5 one gev_fit_ml", lambda: gev_fit_ml(ext), ours)
+    del tas, pr, suite, tile_da, spatial, ext
+    torch.cuda.empty_cache()
+    return block_counts
 
 
 def main() -> int:
@@ -1471,6 +1747,11 @@ def main() -> int:
             "radix_tile_sort_kernel", "merge_pass_kernel")
     second_counts = second_order_phase(dev, ours, tp, (pref_np, phist_np, psim_np), dqm_runs["config 2"]["out"]["scen"].data)
     print(f"[second-order] launches by path (kernels launched at least once): {({p: {k: n for k, n in c.items() if n} for p, c in second_counts.items()})}", flush=True)
+
+    # 5f. BASELINE config 5: QDM adjust plus the validation suite on a
+    # 2048-site tile, in blocks of 512 sites, held against the CPU port
+    c5_counts = config5_phase(dev, ours)
+    print(f"[config 5] QDM kernels' launches by block: {c5_counts}", flush=True)
 
     # 6. times
     q = torch.as_tensor(equally_spaced_nodes(NQ), dtype=torch.float32, device=dev)

@@ -1,6 +1,8 @@
 """The port on an NVIDIA GPU: the CUDA kernels against their plain twins,
-and the public QDM and windowed EQM paths (merge and selection engines) on
-the card against the port's CPU path.  Numpy data runs on the card by
+the public QDM and windowed EQM paths (merge and selection engines) and
+the diagnostics (the GEV fit, the incomplete beta, run lengths, the
+inter-site Spearman product, every property's device) on the card against
+the port's CPU path.  Numpy data runs on the card by
 default here (the ``device`` option is left at "cuda").
 
 Every test here needs a card (and ``nvcc`` to build the kernels) and skips
@@ -817,3 +819,95 @@ def test_sinkhorn_and_otc_on_the_card(cuda):
     with xp.set_options(device="cpu"):
         want = ot_run("dOTC kind pr *", ref, hist, sim)
     assert torch.equal(out.data.cpu(), want.data)
+
+
+# ----------------------------------------------------------------- diagnostics
+
+
+def test_gev_fit_ml_on_the_card(cuda):
+    """float64 fits on the card against the CPU path: the same likelihood
+    reached to 1e-10 relative, the return values at 1e-6 (the Newton steps'
+    last decisions follow rounding noise near a flat optimum, ROADMAP C20);
+    float32 return values at 1e-3."""
+    from scipy import stats
+
+    from xsdba_tpu_torch.ops.fitting import _gev_nll, gev_fit_ml, gev_ppf
+
+    x = stats.genextreme.rvs(0.12, loc=30, scale=3, size=(64, 150), random_state=1)
+    x[3] = np.nan
+    x[5, 2:] = np.nan
+    for dtype, rtol in ((torch.float64, 1e-6), (torch.float32, 1e-3)):
+        t = torch.from_numpy(x).to(dtype)
+        got = gev_fit_ml(t.to(cuda))
+        want = gev_fit_ml(t)
+        assert all(a.is_cuda and a.dtype == dtype for a in got)
+        got = [a.cpu() for a in got]
+        torch.testing.assert_close(gev_ppf(0.95, *got), gev_ppf(0.95, *want), rtol=rtol, atol=0, equal_nan=True)
+        if dtype == torch.float64:
+            valid = ~torch.isnan(t)
+            nll = [_gev_nll(torch.stack([p[0], p[1], torch.log(p[2])], -1), t, valid) for p in (got, want)]
+            ok = torch.isfinite(nll[1])
+            torch.testing.assert_close(nll[0][ok], nll[1][ok], rtol=1e-10, atol=0)
+
+
+def test_betainc_on_the_card(cuda):
+    """The card against the CPU path on the grid of ``test_torch_fitting.py``:
+    float64 at 1e-12; float32 at 2e-4 absolute, the continued fraction's
+    float32 rounding (the log-beta factor), as held against the reference."""
+    from xsdba_tpu_torch.ops.fitting import betainc
+
+    df = torch.arange(1, 301, dtype=torch.float64)[:, None].expand(300, 97)
+    x = torch.linspace(0.001, 0.999, 97, dtype=torch.float64)[None].expand(300, 97)
+    for dtype, rtol, atol in ((torch.float64, 1e-12, 1e-12), (torch.float32, 0.0, 2e-4)):
+        a, b, xx = (v.to(dtype) for v in (df / 2, torch.full_like(df, 0.5), x))
+        got = betainc(a.to(cuda), b.to(cuda), xx.to(cuda))
+        assert got.is_cuda
+        torch.testing.assert_close(got.cpu(), betainc(a, b, xx), rtol=rtol, atol=atol)
+
+
+def test_run_lengths_on_the_card(cuda):
+    from xsdba_tpu_torch.properties import _run_lengths
+
+    cond = torch.from_numpy(np.random.default_rng(2).random((64, 150, 365)) < 0.6)
+    cond[0, 0] = True
+    got = _run_lengths(cond.to(cuda))
+    assert got.is_cuda
+    assert torch.equal(got.cpu(), _run_lengths(cond))
+
+
+def test_pairwise_spearman_on_the_card(cuda):
+    """A plain product of ranks, in full float32 on the card (TF32 off)."""
+    from xsdba_tpu_torch.properties import _pairwise_spearman
+
+    rng = np.random.default_rng(3)
+    x = rng.normal(size=(300, 2000)) + rng.normal(size=2000)[None]
+    x[4, :100] = np.nan
+    for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+        t = torch.from_numpy(x).to(dtype)
+        got = _pairwise_spearman(t.to(cuda))
+        assert got.is_cuda
+        torch.testing.assert_close(got.cpu(), _pairwise_spearman(t), rtol=tol, atol=tol)
+
+
+def test_properties_stay_on_the_input_device(cuda):
+    """Every property and measure of config 5's suite, and the spatial
+    ones, return their values on the card for card data, equal to the CPU
+    path's at 1e-5 (float32; the return value's fit at 1e-3).  150 years:
+    with a few tens of annual maxima the float32 likelihood is so flat that
+    rounding alone moves the return value by ~1e-3 (ROADMAP C20)."""
+    from chip_smoke import config5_block, config5_coords, config5_return_values, config5_suite
+    from xsdba_tpu_torch import measures, properties
+
+    t, tas_np, pr_np = config5_block(0, 16, 150)
+    coords = config5_coords(0, 16)
+    das = lambda arrays, units, dev: {k: xp.DataArray(torch.from_numpy(a).to(dev), ("site", "time"), {"time": t, **coords}, {"units": units}, "v")  # noqa: E731
+                                      for k, a in zip(("ref", "sim", "scen"), arrays)}
+    got, want = ((lambda tas, pr: config5_suite(properties, measures, tas, pr) | config5_return_values(properties, measures, tas))(das(tas_np, "K", dev), das(pr_np, "mm/d", dev))
+                 for dev in (cuda, torch.device("cpu")))
+    for key, da in got.items():
+        assert da.data.is_cuda, key
+        torch.testing.assert_close(da.data.cpu(), want[key].data, rtol=1e-3 if "rv20" in key else 1e-5, atol=1e-5, msg=key)
+    tile = das(tas_np, "K", cuda)["scen"]
+    for fn in (properties.spatial_correlogram, properties.decorrelation_length, properties.first_eof):
+        assert fn(tile).data.is_cuda, fn
+    assert measures.scorr(tile, das(tas_np, "K", cuda)["ref"]).data.is_cuda

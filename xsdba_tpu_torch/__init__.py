@@ -19,11 +19,17 @@ objects of ``detrending``; the multivariate MBCn and NpdfTransform, with
 second-order ExtremeValues (cluster maxima and Generalized Pareto fits);
 PrincipalComponents; OTC and dOTC, whose transport plans are solved on the
 host (the port's own C++ network simplex, built by ``g++`` at first use);
-and the SBCK gateway ``generate_sbck_classes`` (ROADMAP.md lists the
-modules still to port).
+and the SBCK gateway ``generate_sbck_classes``.  The diagnostics that
+validate an adjustment are ported too: ``properties`` (the 28 statistical
+properties: marginal moments and quantiles, spell lengths, annual cycles,
+trends, GEV return values, inter-variable and inter-site correlations) and
+``measures`` (bias, relative bias, circular bias, ratio, RMSE, MAE, the
+annual-cycle correlation, the spatial correlation ratio and the Taylor
+diagram), over ``ops/fitting.py``'s batched GEV fits and regressions
+(ROADMAP.md lists the modules still to port).
 """
 
-from . import detrending, processing
+from . import detrending, measures, processing, properties
 from .models import (
     LOCI,
     OTC,
@@ -65,6 +71,8 @@ __all__ = [
     "detrending",
     "generate_sbck_classes",
     "get_option",
+    "measures",
     "processing",
+    "properties",
     "set_options",
 ]

@@ -4,8 +4,9 @@ Port of the part of reference ``processing.py`` + ``_processing.py`` that
 the ported schemes and their users need: the dry-day preprocessing of
 precipitation (jitter under or over a threshold, frequency adaptation),
 standardization, rank reordering (the Schaake shuffle), stacking variables
-into one array and back, and the energy score.  Normalization, period
-stacking and the rest are not ported yet (ROADMAP A7).
+into one array and back, the energy score, and the type-II DCT that
+``properties.spectral_variance`` takes.  Normalization, period stacking,
+the spectral filter and the rest are not ported yet (ROADMAP A7).
 
 The random draws (jitter noise, adapt_freq's tie-break and noise) come from
 ``utils/rng.py``'s generator on the data's device.  Each core also takes
@@ -366,3 +367,18 @@ def escore(tgt: DataArray, sim: DataArray, dims=("multivar", "time"), N: int = 0
     res.attrs["long_name"] = "Energy dissimilarity metric"
     res.attrs["description"] = "Escores computed from paired standardized observations."
     return res
+
+
+def _dct2(x, axis):
+    """Orthonormal type-II DCT along ``axis``, through one FFT (Makhoul
+    1980; reference processing.py:740-751): the even samples, then the odd
+    ones reversed, transformed and turned by ``2 exp(-i pi k / 2N)``.  The
+    inverse and ``spectral_filter`` are not ported yet (ROADMAP A7)."""
+    x = torch.movedim(x, axis, -1)
+    N = x.shape[-1]
+    V = torch.fft.fft(torch.cat([x[..., ::2], x[..., 1::2].flip(-1)], dim=-1), dim=-1)
+    k = torch.arange(N, dtype=x.dtype, device=x.device)
+    out = torch.real(V * torch.polar(torch.full_like(k, 2.0), -torch.pi * k / (2 * N)))
+    scale = torch.full_like(k, np.sqrt(1 / (2 * N)))
+    scale[0] = np.sqrt(1 / (4 * N))
+    return torch.movedim(out * scale, -1, axis)

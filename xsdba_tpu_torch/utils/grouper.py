@@ -596,8 +596,17 @@ def period_blocks(time: TimeIndex, prop: str):
     January, one specific season instance, one year) then aggregate periods
     within a group (the reference's ``resample(freq).map`` + groupby pattern,
     e.g. properties.py:354-380): returns (gather [P, L] int32 -1-padded,
-    period_group [P] int32) where P runs over individual periods.
+    period_group [P] int32) where P runs over individual periods.  Cached
+    on the TimeIndex, as :meth:`Grouper.indexes` is; callers must not
+    modify the arrays.
     """
+    key = ("period_blocks", prop)
+    if key not in time._cache:
+        time._cache[key] = _period_blocks(time, prop)
+    return time._cache[key]
+
+
+def _period_blocks(time: TimeIndex, prop: str):
     T = len(time)
     if prop == "month":
         keys = time.year * 12 + (time.month - 1)
@@ -615,16 +624,11 @@ def period_blocks(time: TimeIndex, prop: str):
     uniq, inv = np.unique(keys, return_inverse=True)
     P = len(uniq)
     counts = np.bincount(inv, minlength=P)
-    L = int(counts.max())
-    gather = np.full((P, L), -1, dtype=np.int32)
-    fill = np.zeros(P, dtype=np.int64)
-    for t in range(T):
-        p = inv[t]
-        gather[p, fill[p]] = t
-        fill[p] += 1
+    gather = np.full((P, int(counts.max())), -1, dtype=np.int32)
+    order = np.argsort(inv, kind="stable")                      # each period's days, in time order
+    gather[inv[order], np.arange(T) - np.repeat(np.cumsum(counts) - counts, counts)] = order
     period_group = np.zeros(P, dtype=np.int32)
-    for t in range(T):
-        period_group[inv[t]] = groups[t]
+    period_group[inv] = groups                                  # a period lies in one group
     return gather, period_group
 
 
