@@ -135,6 +135,32 @@ Phases, each reported on lines of its own:
    the return values at 1e-3, the tile's correlogram at 1e-4); the pipeline's gridpoint-years/s, the
    suite's share, each property's device time, launches and idle share,
    and peak memory;
+   5g. the rest of the modules users call around the adjustments
+   (:func:`a7_phase`), each on numpy inputs through its public calls, its
+   launches counted around it and held against the CPU port: cubic QDM on
+   the headline data (no lookup kernel launched, the spline in plain
+   PyTorch; the first 8 sites at 2e-6; the adjust's time against linear,
+   the slope solve's launches and time); cubic windowed EQM on the heavy
+   data (the train through K3, K5, K6; the first 4 sites at 2e-6 against
+   the CPU merge engine); the moving-window QDM (trained on 30 years;
+   ``stack_periods(sim, window=30, stride=10)`` of 150 years, 13 periods,
+   unstacked back under ==; the stack adjusted, linear, and unstacked,
+   counted apart from the train: one bracketed lookup, whose launch also
+   blends, and no other kernel; the three timed against the linear adjust
+   of the series; the first 4 sites at 2e-6);
+   MBCn at MBCn-a's width with config 2's pr as its second variable and
+   ``adapt_freq_thresh`` + ``jitter_under_thresh_value`` in
+   ``base_kws_vars`` (K2 ``nearest`` launched 2 x 20 + 3 times; scen a
+   reordering of each variable's univariate QDM; the first rotation's
+   factors at 5e-5 of the CPU port on the same draws); the log transform
+   of config 2's pr into the additive space and back (2e-6 of the CPU port
+   and of the data); the spectral filter on config 3's 100 x 100 grid at
+   0.25 degrees x 30 years (delta estimated from ``lat``; the first 365
+   days at 2e-6 of the field's scale; profiled); the host-to-device copy
+   of one numpy [512, 54750] f32 array; the public ``interp_on_quantiles``
+   at the headline shape, grouped (K1) and ungrouped (K2), equal to the CPU
+   port under ==; each with its time, launches and peak memory beside the
+   card's name and power limit;
 6. times (2 warm-ups, median of 5 and the spread): the fused QDM, windowed
    EQM (merge) and selection steps in gridpoint-years/s (CUDA events), the
    public calls on the same data (host clock), each kernel against its twin
@@ -485,10 +511,10 @@ def mbcn_problem(n_sites):
     return mk(1, "1981-01-01"), mk(2, "1981-01-01"), mk(3, "2011-01-01")
 
 
-def run_mbcn(ref, hist, sim, group, nq, rot=None):
+def run_mbcn(ref, hist, sim, group, nq, rot=None, base_kws_vars=None):
     """The public MBCn path: train, then adjust.  Returns (trained, scen)."""
     obj = xp.MBCn.train(ref, hist, base_kws={"nquantiles": nq, "group": xp.Grouper(*group)}, n_iter=MBCN_ITERS, n_escore=-1, rot_matrices=rot)
-    return obj, obj.adjust(sim, ref, hist)
+    return obj, obj.adjust(sim, ref, hist, base_kws_vars=base_kws_vars)
 
 
 def mbcn_chunks(n_sites, group):
@@ -1302,6 +1328,265 @@ def config5_phase(dev, ours):
     return block_counts
 
 
+# phase 5g: the cubic lookup, period stacking, additive space, the spectral
+# filter and the public lookup at full width
+MW_WINDOW, MW_STRIDE, MW_TRAIN_YEARS, MW_CHECK = 30, 10, 30, 4
+MBCN_PR_KWS = {"pr": {"kind": "*", "adapt_freq_thresh": "1 mm/d", "jitter_under_thresh_value": "0.01 mm/d"}}
+SF_GRID, SF_YEARS, SF_CHECK_DAYS = 100, 30, 365
+SF_KW = dict(dims=["lat", "lon"], lam_long="1000 km", lam_short="250 km")
+_LOOKUPS = ("interp_table_3d", "interp_table_2d", "interp_bracketed")
+
+
+def mbcn_pr_problem(n_sites):
+    """MBCn-a's data (:func:`mbcn_problem`) with its second variable, pr,
+    from config 2's recipe (:func:`pr_problem`, 30 years), in the layout
+    ``stack_variables`` gives ([multivar, site, time], each variable's units
+    in ``_variable_attrs``), which preprocessing in ``base_kws_vars`` needs."""
+    out = []
+    _, prs = pr_problem(n_sites, MBCN_YEARS)
+    units = {"tasmax": {"units": "K"}, "pr": {"units": "mm/d"}, "huss": {"units": "1"}}
+    for da, pr in zip(mbcn_problem(n_sites), prs):
+        x = np.moveaxis(da.data, 1, 0).copy()
+        x[1] = pr
+        out.append(xp.DataArray(x, ("multivar", "site", "time"), dict(da.coords), {"units": "", "_variable_attrs": units}, da.name))
+    return out
+
+
+def _sites(da, n):
+    """The first ``n`` sites of a stacked [multivar, site, time] array, on the CPU."""
+    return xp.DataArray(da.data[:, :n], da.dims, {**da.coords, "site": np.arange(n)}, dict(da.attrs), da.name)
+
+
+def spectral_field(dev, seed=31):
+    """Config 3's grid: 100 x 100 sites at 0.25 degrees from 40.125 N,
+    0.125 E (``lat`` / ``lon`` coordinates) x 30 noleap years of daily f32
+    tas, made on the card: a meridional gradient, a zonal wave and N(0, 2)
+    noise."""
+    T = 365 * SF_YEARS
+    lat = 40.125 + 0.25 * np.arange(SF_GRID)
+    lon = 0.125 + 0.25 * np.arange(SF_GRID)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((T, SF_GRID, SF_GRID), generator=g, device=dev, dtype=torch.float32) * 2
+    x += 285 - 0.5 * torch.as_tensor(lat - 40, dtype=torch.float32, device=dev)[None, :, None]
+    x += 3 * torch.cos(torch.as_tensor(lon, dtype=torch.float32, device=dev) / 2)[None, None, :]
+    t = xp.date_range("1991-01-01", periods=T, freq="D", calendar="noleap")
+    return xp.DataArray(x, ("time", "lat", "lon"), {"time": t, "lat": lat, "lon": lon}, {"units": "K"}, "tas")
+
+
+def _rel_err(got, want):
+    """Max abs difference over the largest finite |want| (NaN and inf where
+    both agree count as equal)."""
+    got, want = got.double(), want.double()
+    scale = float(torch.nan_to_num(want.abs(), nan=0.0, posinf=0.0, neginf=0.0).max()) or 1.0
+    return _max_abs(got, want) / scale
+
+
+def a7_phase(dev, smi):
+    """Phase 5g (module docstring): each item's public calls on numpy inputs
+    (everything on the card), its launches counted from 0 around it, held
+    against the CPU port.  Returns {item: counts}."""
+    from xsdba_tpu_torch.ops import interp as tinterp
+
+    out = {}
+    t, (ref, hist, sim) = example_problem(N_SITES, N_YEARS)
+    cut = slice(0, CHECK_SITES)
+
+    # 1. cubic QDM on the headline data: no lookup kernel, the spline in PyTorch
+    qdm = xp.QuantileDeltaMapping.train(_da(ref, t, "ref"), _da(hist, t, "hist"), group="time.month", nquantiles=NQ, kind="+")
+    adjust = lambda: qdm.adjust(_da(sim, t, "sim"), interp="cubic").data  # noqa: E731
+    torch.cuda.synchronize()
+    _reset_counts()
+    scen, peak = _peak(dev, adjust)
+    counts = out["cubic QDM"] = _counts()
+    assert scen.device.type == dev.type and bool(torch.isfinite(scen).all()), "cubic QDM: non-finite output"
+    assert not any(counts[k] for k in _LOOKUPS) and counts["fma"] >= 1, f"cubic QDM: launches {counts}"
+    with xp.set_options(device="cpu"):
+        cpu = xp.QuantileDeltaMapping.train(_da(ref[cut], t, "ref"), _da(hist[cut], t, "hist"), group="time.month", nquantiles=NQ, kind="+").adjust(
+            _da(sim[cut], t, "sim"), interp="cubic").data
+    torch.testing.assert_close(scen[cut].cpu(), cpu, **TOL)
+    lin = qdm.adjust(_da(sim, t, "sim"), interp="linear").data
+    api = _summary(_host_ms(adjust))
+    api_lin = _summary(_host_ms(lambda: qdm.adjust(_da(sim, t, "sim"), interp="linear").data))
+    xs, ys, nv = tinterp._pad_cyclic_tables(qdm.ds["hist_q"].data, qdm.ds["af"].data, tables_compact=True)
+    slopes = lambda: tinterp._cubic_slopes(xs, ys, nv)  # noqa: E731
+    solve = _summary(_time_ms(slopes))
+    solve_host = _summary(_host_ms(slopes))
+    wall_us, kernels = _profiled(slopes)
+    n_solve = sum(e.count for e in kernels)
+    print(f"[a7] cubic QDM adjust (monthly, nq {NQ}) {tuple(scen.shape)} f32: finite, launches {counts} (no lookup kernel: the spline is plain PyTorch); "
+          f"first {CHECK_SITES} sites vs the CPU port max abs diff {_max_abs(scen[cut].cpu(), cpu):.3g}; differs from linear by up to {_max_abs(scen, lin):.3g} [{smi}]", flush=True)
+    print(f"[a7] cubic QDM public adjust (host clock): {_fmt(api)}; linear {_fmt(api_lin)}; ratio {api['median_ms'] / api_lin['median_ms']:.2f} [{smi}]", flush=True)
+    print(f"[a7] cubic slope solve at the adjust's padded tables {tuple(xs.shape)}: {n_solve} kernel launches, CUDA events {_fmt(solve)}, "
+          f"host clock {_fmt(solve_host)}, profiled {wall_us / 1e3:.3f} ms between events, {sum(_device_us(e) for e in kernels) / 1e3:.3f} ms of kernel time [{smi}]", flush=True)
+    print(f"[a7] cubic QDM adjust peak {peak / 2**30:.3f} GiB above the held [{smi}]", flush=True)
+    del scen, lin, xs, ys, nv
+
+    # 2. cubic windowed EQM on the heavy data: the merge engine trains, the adjust is cubic
+    th, (href, hhist, hsim) = heavy_problem(HEAVY_SITES, HEAVY_YEARS)
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    eqm = xp.EmpiricalQuantileMapping.train(_da(href, th, "ref"), _da(hhist, th, "hist"), group="time.dayofyear", window=HEAVY_WINDOW, nquantiles=NQ, kind="+")
+    torch.cuda.synchronize()
+    train_ms = (time.perf_counter() - t0) * 1e3
+    train_counts = _counts()
+    assert all(train_counts[k] >= 1 for k in ("sort_rows_alternating", "build_levels", "fold_windows")), f"cubic EQM train: launches {train_counts}"
+    _reset_counts()
+    hscen, hpeak = _peak(dev, lambda: eqm.adjust(_da(hsim, th, "sim"), interp="cubic").data)
+    counts = out["cubic windowed EQM"] = {"train": train_counts, "adjust": _counts()}
+    assert bool(torch.isfinite(hscen).all()) and not any(counts["adjust"][k] for k in _LOOKUPS), f"cubic EQM: launches {counts}"
+    hcut = slice(0, HEAVY_CHECK)
+    with xp.set_options(device="cpu", selection_backend=False):   # the CPU's default engine is selection
+        hcpu = xp.EmpiricalQuantileMapping.train(_da(href[hcut], th, "ref"), _da(hhist[hcut], th, "hist"), group="time.dayofyear", window=HEAVY_WINDOW,
+                                                 nquantiles=NQ, kind="+").adjust(_da(hsim[hcut], th, "sim"), interp="cubic").data
+    torch.testing.assert_close(hscen[hcut].cpu(), hcpu, **TOL)
+    hapi = _summary(_host_ms(lambda: eqm.adjust(_da(hsim, th, "sim"), interp="cubic").data))
+    print(f"[a7] cubic windowed EQM (doy+{HEAVY_WINDOW}, nq {NQ}) {tuple(hscen.shape)}: finite, launches {counts}; first {HEAVY_CHECK} sites vs the CPU port "
+          f"(merge engine) max abs diff {_max_abs(hscen[hcut].cpu(), hcpu):.3g}; train {train_ms:.3f} ms (first call), adjust {_fmt(hapi)} (host clock), "
+          f"adjust peak {hpeak / 2**30:.3f} GiB [{smi}]", flush=True)
+    del hscen, eqm
+
+    # 3. moving-window QDM: trained on 30 years, adjusting 150 years as 13
+    # stacked 30-year periods moved by a decade
+    ty = slice(0, 365 * MW_TRAIN_YEARS)
+    t30 = xp.date_range("2000-01-01", periods=365 * MW_TRAIN_YEARS, freq="D", calendar="noleap")
+
+    def mw_train(r=ref, h=hist):
+        return xp.QuantileDeltaMapping.train(_da(r[:, ty], t30, "ref"), _da(h[:, ty], t30, "hist"), group="time.month", nquantiles=NQ, kind="+")
+
+    def moving_window(mw, x=sim):
+        # the trained tables broadcast against sim's leading dims by position
+        # (in both packages), so the period dim goes before the site dim
+        stacked = processing.stack_periods(_da(x, t, "sim"), window=MW_WINDOW, stride=MW_STRIDE)
+        return stacked, processing.unstack_periods(mw.adjust(stacked.transpose("period", "site", "time"), interp="linear"))
+
+    mw = mw_train()
+    torch.cuda.synchronize()
+    _reset_counts()
+    (stacked, unstacked), mpeak = _peak(dev, lambda: moving_window(mw))
+    counts = out["moving-window QDM"] = _counts()
+    assert tuple(stacked.shape) == (N_SITES, (N_YEARS - MW_WINDOW) // MW_STRIDE + 1, 365 * MW_WINDOW) and stacked.data.device.type == dev.type, (tuple(stacked.shape), stacked.data.device)
+    back = processing.unstack_periods(stacked).data
+    assert torch.equal(back, torch.from_numpy(sim).to(dev)), "stack then unstack is not the series"
+    assert bool(torch.isfinite(unstacked.data).all()), "moving-window QDM: non-finite output"
+    # the linear adjust's blend is fused into the bracketed launch: no fma
+    assert counts["interp_bracketed"] >= 1 and not [k for k in counts if k != "interp_bracketed" and counts[k]], f"moving-window QDM: launches {counts}"
+    mcut = slice(0, MW_CHECK)
+    with xp.set_options(device="cpu"):
+        mcpu = moving_window(mw_train(ref[mcut], hist[mcut]), sim[mcut])[1].data
+    torch.testing.assert_close(unstacked.data[mcut].cpu(), mcpu, **TOL)
+    mapi = _summary(_host_ms(lambda: moving_window(mw)))
+    mlin = _summary(_host_ms(lambda: mw.adjust(_da(sim, t, "sim"), interp="linear").data))
+    print(f"[a7] moving-window QDM: stack_periods(window={MW_WINDOW}, stride={MW_STRIDE}) {tuple(sim.shape)} -> {tuple(stacked.shape)} f32 on the card, "
+          f"unstacked back equal under ==; stack + adjust + unstack (trained on {MW_TRAIN_YEARS} years) finite, launches {counts}; first {MW_CHECK} sites vs "
+          f"the CPU port max abs diff {_max_abs(unstacked.data[mcut].cpu(), mcpu):.3g}; the three {_fmt(mapi)} (host clock), the linear adjust of the "
+          f"series {_fmt(mlin)}, ratio {mapi['median_ms'] / mlin['median_ms']:.2f}; peak {mpeak / 2**30:.3f} GiB [{smi}]", flush=True)
+    del stacked, unstacked, back, mw
+
+    # 4. MBCn-a's width with config 2's pr and its preprocessing in base_kws_vars
+    mref, mhist, msim = mbcn_pr_problem(MBCN_A["sites"])
+    n, nq = MBCN_A["check"], MBCN_A["nq"]
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    with SeededDraws(61):
+        (mobj, mscen), mpeak = _peak(dev, lambda: run_mbcn(mref, mhist, msim, MBCN_A["group"], nq, base_kws_vars=MBCN_PR_KWS))
+    mbcn_s = time.perf_counter() - t0
+    counts = out["MBCn pr"] = _counts()
+    data = mscen.data
+    assert data.device.type == dev.type and tuple(data.shape) == (MBCN_VARS, MBCN_A["sites"], 365 * MBCN_YEARS) and bool(torch.isfinite(data).all()), "MBCn pr: output"
+    want_2d = 2 * MBCN_ITERS + MBCN_VARS   # one chunk: n_iter in the train, n_iter + V in the adjust
+    assert counts["interp_table_2d"] == want_2d and counts["fma"] >= 1, f"MBCn pr: launches {counts}"
+    assert not [k for k in counts if k not in ("interp_table_2d", "fma") and counts[k]], f"MBCn pr: another kernel of the port ran: {counts}"
+    # every variable's scen a reordering of its univariate QDM (pr's on the same draws)
+    gi = xp.Grouper(*MBCN_A["group"]).indexes(msim.coords["time"])
+    rows = torch.as_tensor(gi.gather_idx, device=data.device)
+    with SeededDraws(61):
+        uni = torch.stack([
+            mbcn._per_block_univariate(*(torch.as_tensor(d.data[iv, :n], device=data.device) for d in (mref, mhist, msim)), rows, rows,
+                                       {"nquantiles": nq, **MBCN_PR_KWS.get(v, {})}, {"interp": "nearest", "extrapolation": "constant"},
+                                       mref.attrs["_variable_attrs"][v]["units"])[:, 0]
+            for iv, v in enumerate(str(v) for v in msim.coords["multivar"])
+        ])
+    assert torch.equal(torch.sort(data[:, :n], dim=-1).values, torch.sort(uni, dim=-1).values), "MBCn pr: scen is not a reordering of the univariate QDM series"
+    rot = mobj.ds["rot_matrices"].data.cpu()
+    with xp.set_options(device="cpu"), SeededDraws(61):
+        cobj, cscen = run_mbcn(*(_sites(d, n) for d in (mref, mhist, msim)), MBCN_A["group"], nq, rot=rot, base_kws_vars=MBCN_PR_KWS)
+    d_af = (mobj.ds["af_q"].data[:n].cpu() - cobj.ds["af_q"].data).abs().amax(dim=(-1, -2))     # [n, G, I]
+    assert float(d_af[..., 0].max()) <= MBCN_AF_TOL, f"MBCn pr: af_q differs from the CPU port by {float(d_af[..., 0].max()):.3g} in the first iteration"
+    same_values = torch.equal(torch.sort(data[:, :n].cpu(), dim=-1).values, torch.sort(cscen.data, dim=-1).values)
+    moved = float((data[:, :n] != uni).float().mean())
+    print(f"[a7] MBCn (MBCn-a's width, pr with {MBCN_PR_KWS['pr']}) {tuple(data.shape)}: finite, launches {counts}; scen a reordering of each variable's "
+          f"univariate QDM ({100 * moved:.1f} % of the positions moved); first {n} sites vs the CPU port (the card's rotations, the same draws): af_q "
+          f"{float(d_af[..., 0].max()):.3g} in the first iteration, {float(d_af.max()):.3g} over all {MBCN_ITERS}; scen's values "
+          f"{'equal' if same_values else 'NOT equal'} to the CPU port's, {100 * float((data[:, :n].cpu() == cscen.data).float().mean()):.2f} % of the positions; "
+          f"train + adjust {mbcn_s:.3f} s (first call, host clock), peak {mpeak / 2**30:.3f} GiB [{smi}]", flush=True)
+    del mobj, mscen, data, uni
+
+    # 5. additive space on config 2's pr
+    tp, (pref, _, _) = pr_problem(PR_SITES, PR_YEARS)
+    pda = _pr_da(pref, tp, "pr")
+    torch.cuda.synchronize()
+    _reset_counts()
+    (add, back_pr), apeak = _peak(dev, lambda: (lambda a: (a, processing.from_additive_space(a)))(processing.to_additive_space(pda, lower_bound="0 mm/d", trans="log")))
+    counts = out["additive space"] = _counts()
+    with xp.set_options(device="cpu"):
+        cadd = processing.to_additive_space(_pr_da(pref[:CHECK_SITES], tp, "pr"), lower_bound="0 mm/d", trans="log")
+        cback = processing.from_additive_space(cadd)
+    add_err, back_err = _rel_err(add.data[cut].cpu(), cadd.data), _rel_err(back_pr.data[cut].cpu(), cback.data)
+    trip_err = _rel_err(back_pr.data, torch.from_numpy(pref).to(dev))
+    assert add_err <= 2e-6 and back_err <= 2e-6 and trip_err <= 2e-6, (add_err, back_err, trip_err)
+    assert add.attrs["xsdba_transform"] == "log" and back_pr.attrs["units"] == "mm/d"
+    a_ms = _summary(_host_ms(lambda: processing.from_additive_space(processing.to_additive_space(pda, lower_bound="0 mm/d", trans="log"))))
+    print(f"[a7] to_additive_space(log) + from_additive_space {tuple(pref.shape)} f32: launches {counts}; vs the CPU port {add_err:.3g} and {back_err:.3g} of the "
+          f"largest value, round trip {trip_err:.3g}; both {_fmt(a_ms)} (host clock), peak {apeak / 2**30:.3f} GiB [{smi}]", flush=True)
+    del add, back_pr, pda
+
+    # 6. the spectral filter on config 3's grid, delta estimated from lat
+    field = spectral_field(dev)
+    torch.cuda.synchronize()
+    _reset_counts()
+    filt, speak = _peak(dev, lambda: processing.spectral_filter(field, **SF_KW))
+    counts = out["spectral filter"] = _counts()
+    assert bool(torch.isfinite(filt.data).all()) and filt.data.dtype == torch.float32
+    part = xp.DataArray(field.data[:SF_CHECK_DAYS].cpu(), field.dims, {**field.coords, "time": field.coords["time"].isel(np.arange(SF_CHECK_DAYS))}, dict(field.attrs), field.name)
+    with xp.set_options(device="cpu"):
+        cfilt = processing.spectral_filter(part, **SF_KW)
+    sf_err = _rel_err(filt.data[:SF_CHECK_DAYS].cpu(), cfilt.data)
+    assert sf_err <= 2e-6, f"spectral filter: {sf_err:.3g} of the field's scale from the CPU port"
+    sf_dev = _summary(_time_ms(lambda: processing.spectral_filter(field, **SF_KW)))
+    print(f"[a7] spectral_filter {SF_KW} on {tuple(field.shape)} f32 ({field.data.numel() * 4 / 1e6:.0f} MB, delta {processing.estimate_delta_from_cf(field)}): "
+          f"finite, launches {counts}; first {SF_CHECK_DAYS} days vs the CPU port {sf_err:.3g} of the field's scale; CUDA events {_fmt(sf_dev)}, "
+          f"peak {speak / 2**30:.3f} GiB [{smi}]", flush=True)
+    _profile(f"spectral filter {tuple(field.shape)} [{smi}]", lambda: processing.spectral_filter(field, **SF_KW), ())
+    del field, filt
+
+    # the host-to-device copy that every public call on numpy inputs makes
+    h2d = _summary(_host_ms(lambda: torch.from_numpy(sim).to(dev)))
+    print(f"[a7] host-to-device copy of one numpy {tuple(sim.shape)} f32 ({sim.nbytes / 1e6:.0f} MB, pageable): {_fmt(h2d)} (host clock) [{smi}]", flush=True)
+
+    # 7. the public lookup at the headline shape: grouped (K1 on partition rows) and ungrouped (K2)
+    gtabs = (qdm.ds["hist_q"], qdm.ds["af"])
+    utabs = tuple(xp.DataArray(d.data[:, 0], ("site", "quantiles"), {"quantiles": d.coords["quantiles"]}, {}, d.name) for d in gtabs)
+    for tag, (xq, yq), group, kernel in (("grouped", gtabs, "time.month", "interp_table_3d"), ("ungrouped", utabs, "time", "interp_table_2d")):
+        call = lambda: processing.interp_on_quantiles(_da(sim, t, "sim"), xq, yq, group=group, method="linear", mode="blend").data  # noqa: E731
+        torch.cuda.synchronize()
+        _reset_counts()
+        got, ipeak = _peak(dev, call)
+        counts = out[f"interp_on_quantiles {tag}"] = _counts()
+        assert counts[kernel] >= 1 and bool(torch.isfinite(got).all()), f"interp_on_quantiles {tag}: launches {counts}"
+        sub = lambda d: xp.DataArray(d.data[cut].cpu(), d.dims, dict(d.coords), dict(d.attrs), d.name)  # noqa: E731
+        with xp.set_options(device="cpu"):
+            want = processing.interp_on_quantiles(_da(sim[cut], t, "sim"), sub(xq), sub(yq), group=group, method="linear", mode="blend").data
+        n_diff = int((~_nan_equal(got[cut].cpu(), want)).sum())
+        assert n_diff == 0, f"interp_on_quantiles {tag}: {n_diff} values differ from the CPU port"
+        ims = _summary(_host_ms(call))
+        print(f"[a7] interp_on_quantiles {tag} (linear, blend) {tuple(got.shape)} f32: launches {counts}; first {CHECK_SITES} sites equal to the CPU port "
+              f"under ==; {_fmt(ims)} (host clock), peak {ipeak / 2**30:.3f} GiB [{smi}]", flush=True)
+        del got
+    return out
+
+
 def main() -> int:
     # 1. device
     if not torch.cuda.is_available():
@@ -1752,6 +2037,12 @@ def main() -> int:
     # 2048-site tile, in blocks of 512 sites, held against the CPU port
     c5_counts = config5_phase(dev, ours)
     print(f"[config 5] QDM kernels' launches by block: {c5_counts}", flush=True)
+
+    # 5g. cubic interpolation, the moving-window adjustment, MBCn with pr's
+    # preprocessing, the additive space, the spectral filter and the public
+    # lookup, at full width, each held against the CPU port
+    a7_counts = a7_phase(dev, smi)
+    print(f"[a7] launches by item (kernels launched at least once): {({p: {k: n for k, n in c.items() if n} if 'train' not in c else c for p, c in a7_counts.items()})}", flush=True)
 
     # 6. times
     q = torch.as_tensor(equally_spaced_nodes(NQ), dtype=torch.float32, device=dev)

@@ -911,3 +911,80 @@ def test_properties_stay_on_the_input_device(cuda):
     for fn in (properties.spatial_correlogram, properties.decorrelation_length, properties.first_eof):
         assert fn(tile).data.is_cuda, fn
     assert measures.scorr(tile, das(tas_np, "K", cuda)["ref"]).data.is_cuda
+
+
+# ---------------------------------------------------- cubic, periods, filters
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cubic_lookup_on_the_card_equals_the_cpu_port(cuda, dtype):
+    """The cubic lookup on CUDA tensors (every fused product through the
+    ``fma`` kernel) against the CPU port (the exact emulation): equal under
+    ==, also on short, empty and duplicated-node tables."""
+    rng = np.random.default_rng(21)
+    B, nq = 64, 50
+    xq = np.sort(rng.normal(0, 3, (B, nq)), axis=-1)
+    yq = rng.normal(0, 1, (B, nq))
+    xq[1, 10:14] = np.nan
+    xq[2, 3:] = np.nan
+    xq[3] = np.nan
+    xq[4, 7] = xq[4, 6]
+    v = rng.normal(0, 4, (B, 3000))
+    v[:, :5] = xq[:, :5]
+    v[:, 9] = np.nan
+    args = [torch.as_tensor(a, dtype=dtype) for a in (v, xq, yq)]
+    want = interp.interp1d_table(*args, "cubic", "constant")
+    launched = fma_kernel.launches
+    got = interp.interp1d_table(*(a.to(cuda) for a in args), "cubic", "constant")
+    assert got.is_cuda and fma_kernel.launches > launched
+    assert _nan_equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("cls,group", [("QuantileDeltaMapping", "time.month"), ("EmpiricalQuantileMapping", ("time.dayofyear", 31)), ("DetrendedQuantileMapping", "time")])
+def test_public_cubic_on_the_card_against_the_cpu_port(cuda, cls, group):
+    t, (ref, hist, sim) = example_problem(8, 6)
+    g = lambda: xp.Grouper(*group) if isinstance(group, tuple) else group  # noqa: E731
+    da = lambda x, name: xp.DataArray(x, ("site", "time"), {"time": t}, {"units": "K"}, name)  # noqa: E731
+    k.launches = k.launches_2d = k.launches_bracketed = 0
+    got = getattr(xp, cls).train(da(ref, "ref"), da(hist, "hist"), group=g(), nquantiles=20).adjust(da(sim, "sim"), interp="cubic").data
+    assert got.is_cuda and k.launches == k.launches_2d == k.launches_bracketed == 0
+    with xp.set_options(device="cpu", selection_backend=False):
+        want = getattr(xp, cls).train(da(ref, "ref"), da(hist, "hist"), group=g(), nquantiles=20).adjust(da(sim, "sim"), interp="cubic").data
+    torch.testing.assert_close(got.cpu(), want, rtol=2e-6, atol=2e-6)
+
+
+def test_spectral_filter_on_the_card(cuda):
+    """The DCT filter by ``torch.fft`` on the card against the CPU port:
+    2e-6 of the field's scale (cuFFT rounds in its own order)."""
+    rng = np.random.default_rng(22)
+    x = (280 + rng.normal(0, 2, (40, 24, 32))).astype(np.float32)
+    t = xp.date_range("2000-01-01", periods=40, freq="D", calendar="noleap")
+    da = lambda data: xp.DataArray(data, ("time", "lat", "lon"), {"time": t, "lat": 45 + 0.25 * np.arange(24), "lon": 0.25 * np.arange(32)}, {"units": "K"}, "tas")  # noqa: E731
+    kw = dict(dims=["lat", "lon"], lam_long="400 km", lam_short="100 km")
+    got = xp.processing.spectral_filter(da(torch.from_numpy(x).to(cuda)), **kw).data
+    want = xp.processing.spectral_filter(da(torch.from_numpy(x)), **kw).data
+    assert got.is_cuda and got.dtype == torch.float32
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=2e-6 * float(want.abs().max()))
+
+
+def test_stack_adjust_unstack_on_the_card(cuda):
+    """The moving-window adjustment on the card: ``stack_periods`` (a copy
+    on the data's device), QDM's adjust of the stack (the period dim first:
+    the trained tables broadcast against sim's leading dims by position),
+    ``unstack_periods``; against the CPU port at 2e-6, and the round trip
+    of the stack alone under ==."""
+    t, (ref, hist, sim) = example_problem(4, 50)
+    t30 = xp.date_range("2000-01-01", periods=365 * 30, freq="D", calendar="noleap")
+    da = lambda x, tt, name: xp.DataArray(x, ("site", "time"), {"time": tt}, {"units": "K"}, name)  # noqa: E731
+
+    def run():
+        qdm = xp.QuantileDeltaMapping.train(da(ref[:, : 365 * 30], t30, "ref"), da(hist[:, : 365 * 30], t30, "hist"), group="time.month", nquantiles=20)
+        stacked = xp.processing.stack_periods(da(sim, t, "sim"), window=30, stride=10)
+        return stacked, xp.processing.unstack_periods(qdm.adjust(stacked.transpose("period", "site", "time"))).data
+
+    stacked, got = run()
+    assert stacked.data.is_cuda and tuple(stacked.shape) == (4, 3, 365 * 30) and got.is_cuda
+    assert torch.equal(xp.processing.unstack_periods(stacked).data.cpu(), torch.from_numpy(sim))
+    with xp.set_options(device="cpu"):
+        _, want = run()
+    torch.testing.assert_close(got.cpu(), want, rtol=2e-6, atol=2e-6)

@@ -69,7 +69,12 @@ def test_import_loads_no_jax():
     assert set(out["processing"]) == {
         "standardize", "unstandardize", "reordering", "stack_variables", "unstack_variables", "escore",
         "adapt_freq", "jitter", "jitter_under_thresh", "jitter_over_thresh",
+        # the rest of the JAX package's processing.py (ROADMAP A7)
+        "normalize", "uniform_noise_like", "to_additive_space", "from_additive_space", "stack_periods", "unstack_periods",
+        "estimate_delta_from_cf", "spectral_filter", "grouped_time_indexes", "rank", "sort_along_dim", "get_clusters",
+        "broadcast", "interp_on_quantiles",
     }
+    assert "xsdba_tpu_torch.utils.helpers" in out["port"]
     assert set(out["detrending"]) == {"BaseDetrend", "NoDetrend", "MeanDetrend", "PolyDetrend", "LoessDetrend", "RollingMeanDetrend"}
 
 
@@ -83,3 +88,57 @@ def test_no_source_file_imports_jax(path):
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
             names.append(node.module or "")
     assert not [n for n in names if n.split(".")[0] in ("jax", "jaxlib", "xsdba_tpu")], path
+
+
+def _top_level_names():
+    """(name, module) of every name ``xsdba_tpu`` resolves through its lazy
+    ``__getattr__``: the public names of its models, processing, detrending,
+    properties and measures, the first module in that order that has each.
+    Left out: modules, the JAX namespace, and the JAX package's key stream
+    ``next_key`` (the port's stream is ``utils/rng.py:next_generator``, C4)."""
+    import importlib
+    import inspect
+
+    import xsdba_tpu
+
+    seen = {}
+    for modname in ("models", "processing", "detrending", "properties", "measures"):
+        mod = importlib.import_module(f"xsdba_tpu.{modname}")
+        for name in dir(mod):
+            obj = getattr(mod, name)
+            if name.startswith("_") or name in seen or name == "next_key" or inspect.ismodule(obj):
+                continue
+            if (getattr(obj, "__module__", None) or "").split(".")[0] in ("jax", "jaxlib"):
+                continue
+            assert getattr(xsdba_tpu, name) is obj
+            seen[name] = modname
+    return sorted(seen.items())
+
+
+def test_top_level_resolves_the_reference_names():
+    """ROADMAP C23: the port's top level resolves each of those names to the
+    same-named object of the same module (so ``mean`` is
+    ``properties.mean`` in both), and refuses private and unknown names."""
+    import importlib
+
+    import xsdba_tpu_torch
+
+    names = _top_level_names()
+    assert len(names) > 100 and ("mean", "properties") in names and ("PolyDetrend", "detrending") in names
+    for name, modname in names:
+        assert getattr(xsdba_tpu_torch, name) is getattr(importlib.import_module(f"xsdba_tpu_torch.{modname}"), name), name
+    for name in ("_private", "not_a_name"):
+        with pytest.raises(AttributeError):
+            getattr(xsdba_tpu_torch, name)
+
+
+def test_statistical_property_takes_units():
+    """ROADMAP C24: ``units=`` is accepted and ignored, as in the JAX package."""
+    import inspect
+
+    from xsdba_tpu.properties import StatisticalProperty as JProperty
+    from xsdba_tpu_torch.properties import StatisticalProperty
+
+    assert list(inspect.signature(StatisticalProperty).parameters) == list(inspect.signature(JProperty).parameters)
+    prop = StatisticalProperty("double", "marginal", lambda da, group="time": da, units="K")
+    assert prop.identifier == "double" and not hasattr(prop, "units")

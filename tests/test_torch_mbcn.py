@@ -243,10 +243,6 @@ def test_mbcn_refusals(rots):
     with pytest.raises(NotImplementedError, match="add_dims"):
         xp.MBCn.train(ref, hist, base_kws={"group": xp.Grouper("time.dayofyear", window=5, add_dims=["site"])})
     obj = xp.MBCn.train(ref, hist, base_kws={"nquantiles": 6}, n_iter=1, rot_matrices=rots[:1])
-    with pytest.raises(NotImplementedError, match="A7"):
-        obj.adjust(sim, ref, hist, base_kws_vars={"pr": {"adapt_freq_thresh": "1 mm/d"}})
-    with pytest.raises(NotImplementedError, match="A7"):
-        obj.adjust(sim, ref, hist, base_kws_vars={"tas": {"jitter_under_thresh_value": "0.01 mm/d"}})
     with pytest.raises(NotImplementedError, match="Unsupported base_kws_vars"):
         obj.adjust(sim, ref, hist, base_kws_vars={"pr": {"max_tail_factor": 2}})
     with pytest.raises(ValueError, match="must be the same"):
@@ -256,6 +252,48 @@ def test_mbcn_refusals(rots):
     # a multiplicative variable is accepted, as in the reference
     scen = obj.adjust(sim, ref, hist, base_kws_vars={"pr": {"kind": "*"}})
     assert np.isfinite(_np(scen)).all()
+
+
+def _pr_tas(mod, seed, start="1981-01-01"):
+    """A Dataset of daily pr (mm/d, a third of the days dry) and tas (K) at
+    S sites, stacked as the multivariate workflow stacks it.  The dry days
+    hold distinct traces under 0.005 mm/d: exact ties at zero would put
+    pct ranks on the midpoints of the ``nearest`` nodes, where an ulp of the
+    rotated state decides (ROADMAP C12, in float64 here)."""
+    rng = np.random.default_rng(seed)
+    t = mod.date_range(start, periods=T, freq="D", calendar="noleap")
+    pr = np.where(rng.random((S, T)) < 0.67, rng.gamma(0.8, 4, (S, T)), rng.uniform(0, 0.005, (S, T)))
+    tas = 280 + rng.normal(0, 3, (S, T)) + 0.2 * pr
+    mk = lambda x, u, nm: mod.DataArray(x, ("site", "time"), {"time": t}, {"units": u}, nm)  # noqa: E731
+    return mod.processing.stack_variables(mod.Dataset({"pr": mk(pr, "mm/d", "pr"), "tas": mk(tas, "K", "tas")}))
+
+
+@pytest.mark.parametrize("pr_kws", [
+    {"kind": "*", "adapt_freq_thresh": "1 mm/d", "jitter_under_thresh_value": "0.01 mm/d"},
+    {"jitter_under_thresh_value": "0.01 mm/d"},
+    {"kind": "*", "adapt_freq_thresh": "1 mm/d"},
+], ids=["both", "jitter", "adapt_freq"])
+def test_mbcn_base_kws_vars_preprocessing_matches_reference(monkeypatch, pr_kws):
+    """``base_kws_vars``' dry-day preprocessing of one variable: its ref,
+    hist and sim jittered under the threshold and hist's and sim's blocks
+    frequency-adapted before the block's QDM, the port drawing the JAX
+    package's draws (``tests/test_torch_qdm.py:reference_draws``): ``scen``
+    at 1e-10 (float64, the tolerance of every MBCn case here)."""
+    from test_torch_qdm import reference_draws
+
+    reference_draws(monkeypatch)
+    jax_seed(11)
+    rot = np.array(rand_rot_matrix(2, num=2, dtype=np.float64))
+    out = {}
+    for mod in (xt, xp):
+        ref, hist, sim = _pr_tas(mod, 1), _pr_tas(mod, 2), _pr_tas(mod, 3, "2041-01-01")
+        obj = mod.MBCn.train(ref, hist, base_kws={"nquantiles": 8}, n_iter=2, n_escore=-1, rot_matrices=rot)
+        jax_seed(JAX_SEED)
+        out[mod] = _np(obj.adjust(sim, ref, hist, base_kws_vars={"pr": dict(pr_kws)}))
+    assert np.isfinite(out[xp]).all()
+    np.testing.assert_allclose(out[xp], out[xt], **F64)
+    plain = xp.MBCn.train(_pr_tas(xp, 1), _pr_tas(xp, 2), base_kws={"nquantiles": 8}, n_iter=2, n_escore=-1, rot_matrices=rot)
+    assert (_np(plain.adjust(_pr_tas(xp, 3, "2041-01-01"), _pr_tas(xp, 1), _pr_tas(xp, 2))) != out[xp]).any()
 
 
 def test_mbcn_files_cross_the_packages(tmp_path, rots):

@@ -208,8 +208,14 @@ def test_interp1d_table(dtype, method, extrap, nq):
 
 
 def test_cubic_not_ported():
-    with pytest.raises(NotImplementedError, match="A7"):
-        tinterp.interp1d_table(torch.zeros(2, 3), np.arange(5.0), np.arange(5.0), "cubic")
+    """Cubic, once unported here, is ported (``tests/test_torch_cubic.py``
+    holds it to the JAX package): a 5-node table gives its spline, which
+    reproduces a cubic polynomial exactly; an unknown method still raises."""
+    x = np.arange(5.0)
+    got = tinterp.interp1d_table(torch.tensor([[0.5, 1.5, 3.25]]), x, x**3, "cubic").numpy()
+    np.testing.assert_allclose(got, [[0.125, 3.375, 3.25**3]], rtol=1e-12)
+    with pytest.raises(NotImplementedError, match="quadratic"):
+        tinterp.interp1d_table(torch.zeros(2, 3, dtype=torch.float64), x, x, "quadratic")
 
 
 @pytest.mark.parametrize("tables_compact", [False, True])

@@ -347,3 +347,246 @@ def test_public_adapt_freq_and_jitter(dry, monkeypatch):
         want = getattr(xt.processing, fn)(js, *args)
         jax_seed(JAX_SEED)
         np.testing.assert_array_equal(_np(getattr(xp.processing, fn)(ps, *args)), _np(want))
+
+
+# ------------------------------------------------- the rest of processing.py
+#
+# Tolerances.  Whatever moves or compares values without rounding (ranks,
+# sorts, clusters, group indexes, nearest broadcasts, the draws) is held under
+# ``==``.  Elementwise transcendentals (log, exp) and sums (group means, FFTs)
+# round in other places in the two packages: float64 at 1e-12 and float32 at
+# 2e-6, relative, the absolute part scaled by the result's largest value.
+
+
+def _close(got, want, dtype):
+    tol = 1e-12 if np.dtype(dtype) == np.float64 else 2e-6
+    want = np.asarray(want, dtype=np.float64)
+    np.testing.assert_allclose(np.asarray(got, dtype=np.float64), want, rtol=tol, atol=tol * np.nanmax(np.abs(want)), equal_nan=True)
+
+
+def _attrs(da):
+    """attrs with the history's last entry cut to its call (each package
+    signs it with its own name and version)."""
+    out = dict(da.attrs)
+    if "history" in out:
+        out["history"] = out["history"].split("\n")[-1].split("] : ")[-1].split(" - ")[0]
+    return out
+
+
+def reference_noise(monkeypatch):
+    """The port's noise (``uniform_noise_like``, ``rank``'s and
+    ``random_tiebreak``'s tie-breaks) drawn as the JAX package draws it: the
+    JAX stream's next key, in the data's dtype."""
+    from xsdba_tpu.utils.rng import next_key
+
+    def noise(x, lo, hi):
+        return torch.from_numpy(_jax_uniform(next_key(), tuple(x.shape), np.float64 if x.dtype == torch.float64 else np.float32, lo, hi))
+
+    monkeypatch.setattr(tproc, "_noise_draws", noise)
+
+
+@pytest.mark.parametrize("trans,kw", [
+    ("log", dict(lower_bound="0 mm/d")),
+    ("log", dict(lower_bound="-0.5 mm/d", clip_next_to_bounds="strict")),
+    ("logit", dict(lower_bound="0 mm/d", upper_bound="200 mm/d")),
+    ("logit", dict(lower_bound="0 mm/d", upper_bound="40 mm/d", clip_next_to_bounds="permissive")),
+], ids=["log", "log-strict", "logit", "logit-permissive"])
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_additive_space_matches_reference(dry, trans, kw, dtype):
+    x = dry[0].astype(dtype) + 0.01
+    x[1, 7] = np.nan
+    j, t = _pair(xt, x, units="mm/d", name="pr"), _pair(xp, x, units="mm/d", name="pr")
+    want, got = xt.processing.to_additive_space(j, trans=trans, **kw), xp.processing.to_additive_space(t, trans=trans, **kw)
+    assert _attrs(got) == _attrs(want) and _np(got).dtype == dtype
+    _close(_np(got), _np(want), dtype)
+    back_w, back_g = xt.processing.from_additive_space(want), xp.processing.from_additive_space(got)
+    assert back_g.attrs["units"] == "mm/d" and back_g.attrs.keys() == back_w.attrs.keys()
+    _close(_np(back_g), _np(back_w), dtype)
+    if "clip_next_to_bounds" not in kw:
+        _close(_np(back_g), x, dtype)        # the round trip
+    explicit = xp.processing.from_additive_space(got, trans=trans, units="mm/d", **{k: v for k, v in kw.items() if k.endswith("bound")})
+    np.testing.assert_array_equal(_np(explicit), _np(back_g))
+
+
+def test_additive_space_refusals(dry):
+    t = _pair(xp, dry[0], units="mm/d")
+    with pytest.raises(ValueError, match="strict"):
+        xp.processing.to_additive_space(t, lower_bound="1 mm/d", clip_next_to_bounds="strict")
+    with pytest.raises(ValueError, match="upper_bound"):
+        xp.processing.to_additive_space(t, lower_bound="0 mm/d", trans="logit")
+    with pytest.raises(ValueError, match="all parameters"):
+        xp.processing.from_additive_space(t, trans="log")
+
+
+def _latlon(mod, dtype, T=20, ny=12, nx=16):
+    """A [time, lat, lon] field at 0.25 degrees with a large-scale gradient
+    and small-scale noise."""
+    rng = np.random.default_rng(8)
+    lat, lon = 45 + 0.25 * np.arange(ny), -75 + 0.25 * np.arange(nx)
+    x = 280 + np.linspace(0, 6, ny)[None, :, None] + np.cos(np.arange(nx) / 3)[None, None] + rng.normal(0, 1, (T, ny, nx))
+    t = mod.date_range("2000-01-01", periods=T, freq="D", calendar="noleap")
+    return mod.DataArray(x.astype(dtype), ("time", "lat", "lon"), {"time": t, "lat": lat, "lon": lon}, {"units": "K"}, "tas")
+
+
+@pytest.mark.parametrize("kw", [
+    dict(lam_long="200 km", lam_short="60 km"),
+    dict(lam_long="200 km", lam_short="60 km", delta="25 km"),
+    dict(alpha_low_high=(0.1, 0.4)),
+], ids=["delta-from-lat", "delta", "alpha"])
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_spectral_filter_matches_reference(kw, dtype):
+    """The DCT low-pass filter over lat and lon: float64 at 1e-12 and float32
+    at 2e-6 of the field's scale (``torch.fft`` and ``jnp.fft`` round
+    differently)."""
+    j, t = _latlon(xt, dtype), _latlon(xp, dtype)
+    want, got = xt.processing.spectral_filter(j, dims=["lat", "lon"], **kw), xp.processing.spectral_filter(t, dims=["lat", "lon"], **kw)
+    assert got.dims == want.dims and _attrs(got) == _attrs(want)
+    assert _np(got).dtype == dtype
+    _close(_np(got), _np(want), dtype)
+    assert np.abs(_np(got) - _np(t)).max() > 0.1          # the small scales went
+
+
+def test_dct_round_trip_and_delta_estimate():
+    x = torch.from_numpy(np.random.default_rng(2).normal(size=(3, 7, 10)))
+    for axis in (1, 2):
+        np.testing.assert_allclose(tproc._idct2(tproc._dct2(x, axis), axis).numpy(), x.numpy(), atol=1e-12)
+    assert xp.processing.estimate_delta_from_cf(_latlon(xp, np.float64)) == xt.processing.estimate_delta_from_cf(_latlon(xt, np.float64))
+    flat = xp.DataArray(np.zeros((2, 3)), ("time", "x"), {"x": np.arange(3)}, {}, "v")
+    with pytest.raises(ValueError, match="latitude-like"):
+        xp.processing.estimate_delta_from_cf(flat)
+    mask = tproc.cos2_mask_func(torch.tensor([0.0, 0.1, 0.25, 0.4, 0.9], dtype=torch.float64), 0.1, 0.4).numpy()
+    np.testing.assert_allclose(mask, np.asarray(jproc.cos2_mask_func(np.array([0.0, 0.1, 0.25, 0.4, 0.9]), 0.1, 0.4)), atol=1e-15)
+
+
+@pytest.mark.parametrize("group,kind", [("time.month", "+"), ("time.season", "*"), ("time", "+")])
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_normalize_matches_reference(dry, group, kind, dtype):
+    x = dry[1].astype(dtype) + 1.0
+    x[0, 30:40] = np.nan
+    (wa, wn), (ga, gn) = (mod.processing.normalize(_pair(mod, x, units="mm/d"), group=group, kind=kind) for mod in (xt, xp))
+    assert ga.dims == wa.dims and gn.dims == wn.dims and gn.attrs["units"] == "mm/d"
+    _close(_np(gn), _np(wn), dtype)
+    _close(_np(ga), _np(wa), dtype)
+    again, _ = xp.processing.normalize(_pair(xp, x, units="mm/d"), norm=gn, group=group, kind=kind)
+    np.testing.assert_array_equal(_np(again), _np(ga))
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_uniform_noise_like(monkeypatch, dtype):
+    """The port's own stream: its dtype, shape and range, and a seed replays
+    it; given the reference's draws (float64, which the reference draws
+    whatever the data's dtype), the reference's noise."""
+    da = _pair(xp, np.zeros((2, 1000), dtype=dtype))
+    trng.seed(4)
+    a = _np(xp.processing.uniform_noise_like(da, low=0.5, high=2.0))
+    trng.seed(4)
+    b = _np(xp.processing.uniform_noise_like(da, low=0.5, high=2.0))
+    assert a.dtype == dtype and a.shape == (2, 1000) and (a >= 0.5).all() and (a < 2.0).all()
+    np.testing.assert_array_equal(a, b)
+    assert abs(a.mean() - 1.25) < 0.05
+    if dtype is np.float64:
+        reference_noise(monkeypatch)
+        jax_seed(JAX_SEED)
+        want = _np(xt.processing.uniform_noise_like(_pair(xt, np.zeros((2, 1000)))))
+        jax_seed(JAX_SEED)
+        np.testing.assert_array_equal(_np(xp.processing.uniform_noise_like(da)), want)
+
+
+def test_grouped_time_indexes():
+    for mod in (xt, xp):
+        t = mod.date_range("2001-01-01", periods=N, freq="D", calendar="noleap")
+        got = mod.processing.grouped_time_indexes(t, mod.Grouper("time.dayofyear", window=5))
+        if mod is xt:
+            want = got
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(np.asarray(g), np.asarray(w))
+    assert got[0].shape[0] == got[1].shape[0] == 365 and got[1].shape[1] > got[0].shape[1]
+
+
+@pytest.mark.parametrize("pct", [False, True])
+@pytest.mark.parametrize("tiebreak", [False, True])
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_rank_and_sort_match_reference(monkeypatch, dry, pct, tiebreak, dtype):
+    """Average ranks (ties and NaN), percentile ranks, the random tie-break
+    given the reference's draws, and the sort: ``==``."""
+    reference_noise(monkeypatch)
+    x = dry[0].astype(dtype)
+    x[1, 10:20] = np.nan
+    out = {}
+    for mod in (xt, xp):
+        jax_seed(JAX_SEED)
+        out[mod] = mod.processing.rank(_pair(mod, x, dims=("site", "time")), pct=pct, use_random_tiebreak=tiebreak)
+    assert out[xp].dims == out[xt].dims and out[xp].attrs["units"] == ""
+    np.testing.assert_array_equal(_np(out[xp]), _np(out[xt]))
+    if tiebreak and dtype is np.float64:
+        r = _np(out[xp])[0]
+        assert len(np.unique(r)) == len(r)       # no ties left
+    srt = xp.processing.sort_along_dim(_pair(xp, x))
+    np.testing.assert_array_equal(_np(srt), _np(xt.processing.sort_along_dim(_pair(xt, x))))
+
+
+def test_get_clusters_matches_reference(dry):
+    x = dry[0].copy()
+    x[0, 50] = np.nan
+    want, got = (mod.processing.get_clusters(_pair(mod, x), 10.0, 2.0) for mod in (xt, xp))
+    for name in ("start", "end", "maxpos", "maximum", "nclusters"):
+        assert got[name].dims == want[name].dims
+        np.testing.assert_array_equal(_np(got[name]), _np(want[name]))
+
+
+@pytest.mark.parametrize("group,interp", [("time.month", "nearest"), ("time.month", "linear"), ("time.season", "linear"), ("time", "nearest")])
+def test_broadcast_matches_reference(group, interp):
+    """Grouped factors onto the time axis, and with ``sel`` a quantile
+    dimension consumed by each time step's rank (NaN outside the nodes'
+    span for linear)."""
+    rng = np.random.default_rng(3)
+    nq = 5
+    q = np.linspace(0.1, 0.9, nq)
+    out = {}
+    for mod in (xt, xp):
+        t = mod.date_range("2001-01-01", periods=N, freq="D", calendar="noleap")
+        gi = mod.Grouper(group).indexes(t)
+        prop = "group" if gi.prop == "group" else gi.prop
+        G = len(gi.positions)
+        f = np.random.default_rng(1).normal(size=(2, G, nq))
+        grouped = mod.DataArray(f, ("site", prop, "quantiles"), {"quantiles": q, prop: gi.coord}, {"units": ""}, "af")
+        x = _pair(mod, np.zeros((2, N)))
+        ranks = mod.DataArray(rng.uniform(0, 1, (2, N)) if mod is xt else out[xt][2], ("site", "time"), {"time": t}, {}, "r")
+        plain = mod.processing.broadcast(mod.DataArray(f[..., 0], ("site", prop), {prop: gi.coord}, {}, "f"), x, group=group, interp=interp)
+        sel = mod.processing.broadcast(grouped, x, group=group, interp=interp, sel={"quantiles": ranks})
+        out[mod] = plain, sel, _np(ranks)
+    for g, w in zip(out[xp][:2], out[xt][:2]):
+        assert g.dims == w.dims
+        np.testing.assert_allclose(_np(g), _np(w), rtol=1e-12, atol=1e-12, equal_nan=True)
+    assert np.isnan(_np(out[xp][1])).any() == (interp == "linear")
+
+
+@pytest.mark.parametrize("group,method", [("time.month", "linear"), ("time.month", "nearest"), ("time.season", "cubic"), ("time", "linear"), ("time", "cubic")])
+@pytest.mark.parametrize("mode", ["blend", "reference"])
+def test_interp_on_quantiles_matches_reference(group, method, mode):
+    """The public lookup, grouped and ungrouped, in both modes.  The JAX
+    package's public call is eager: its ungrouped linear interpolation
+    rounds ``y0 + t (y1 - y0)`` twice where the port (as every adjust)
+    fuses it, so linear and cubic are held at 1e-12; nearest under
+    ``==``."""
+    rng = np.random.default_rng(4)
+    nq = 12
+    out = {}
+    for mod in (xt, xp):
+        t = mod.date_range("2001-01-01", periods=N, freq="D", calendar="noleap")
+        gi = mod.Grouper(group).indexes(t)
+        prop = "group" if gi.prop == "group" else gi.prop
+        G = len(gi.positions)
+        r = np.random.default_rng(5)
+        xq = np.sort(r.normal(0, 2, (2, G, nq)), axis=-1)
+        yq = r.normal(0, 1, (2, G, nq))
+        dims = ("site", prop, "quantiles") if group != "time" else ("site", "quantiles")
+        sl = (slice(None), 0) if group == "time" else (slice(None),)
+        mk = lambda a, nm: mod.DataArray(a[sl], dims, {"quantiles": np.arange(nq)}, {}, nm)  # noqa: E731
+        newx = _pair(mod, np.random.default_rng(6).normal(0, 2.5, (2, N)))
+        out[mod] = mod.processing.interp_on_quantiles(newx, mk(xq, "x"), mk(yq, "y"), group=group, method=method, mode=mode)
+    assert out[xp].dims == out[xt].dims
+    if method == "nearest":
+        np.testing.assert_array_equal(_np(out[xp]), _np(out[xt]))
+    else:
+        np.testing.assert_allclose(_np(out[xp]), _np(out[xt]), rtol=1e-12, atol=1e-12, equal_nan=True)

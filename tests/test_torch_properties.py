@@ -203,11 +203,19 @@ def _grid(dtype, n=12, T=400):
     ("decorrelation_length", dict(radius=150, thresh=0.3, bins=10)),
 ])
 def test_spatial_properties_match_reference(dtype, name, kw):
-    """The matrices on the device, the binning on the host: equal."""
+    """The matrices on the device, the binning on the host: equal, but for
+    the float32 correlogram's binned values.  Those are means of the
+    float32 rank product, whose summation order follows the CPU's GEMM
+    (on one CPU 9 of 20 bins differ by up to 1.9e-8), so they are held at
+    F32 (2e-6), as ``test_pairwise_matrices_match_reference`` holds the
+    product itself.  Counts and coordinates stay equal."""
     jda, tda = _grid(dtype)
     got, want = getattr(tp, name)(tda, **kw), getattr(jp, name)(jda, **kw)
     assert got.dims == want.dims and got.attrs == want.attrs
-    np.testing.assert_array_equal(_np(got), _np(want))
+    if dtype is np.float32 and name == "spatial_correlogram":
+        _close(_np(got), _np(want), F32)
+    else:
+        np.testing.assert_array_equal(_np(got), _np(want))
     for c in got.coords:
         np.testing.assert_array_equal(np.asarray(got.coords[c]), np.asarray(want.coords[c]))
 

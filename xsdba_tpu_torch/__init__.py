@@ -76,3 +76,18 @@ __all__ = [
     "properties",
     "set_options",
 ]
+
+
+def __getattr__(name):
+    # The JAX package's lazy public API (``xsdba_tpu/__init__.py``): any
+    # public name of these modules, searched in this order, resolves at the
+    # top level (so ``mean`` is ``properties.mean``).
+    import importlib
+
+    if name.startswith("_"):
+        raise AttributeError(f"module 'xsdba_tpu_torch' has no attribute {name!r}")
+    for modname in ("models", "processing", "detrending", "properties", "measures"):
+        mod = importlib.import_module(f".{modname}", __name__)
+        if hasattr(mod, name):
+            return getattr(mod, name)
+    raise AttributeError(f"module 'xsdba_tpu_torch' has no attribute {name!r}")

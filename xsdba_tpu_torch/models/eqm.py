@@ -38,7 +38,7 @@ class EmpiricalQuantileMapping(TrainAdjust):
     factors between them; adjust interpolates the factors at each sim value.
     Parameters and behavior mirror reference ``adjustment.py:414-528``:
     ``nquantiles`` (int -> bin-midpoint nodes), ``kind`` (+/*), ``group``,
-    ``max_tail_factor``; adjust takes ``interp`` (nearest/linear) and
+    ``max_tail_factor``; adjust takes ``interp`` (nearest/linear/cubic) and
     ``extrapolation`` (constant/nan).  A windowed dayofyear or "5D" group
     trains through the counting-selection engine (``ops/selquant.py``; the
     CPU's default, and on a GPU under ``set_options(selection_on_tpu=True)``,
@@ -48,8 +48,9 @@ class EmpiricalQuantileMapping(TrainAdjust):
     unless the caller asks for the CPU).  Training takes the dry-day
     preprocessing (``adapt_freq_thresh``, jitter under or over a threshold),
     and an object trained with ``adapt_freq_thresh`` adapts sim's dry-day
-    frequency before adjusting it.  Cubic interpolation (ROADMAP A7) is not
-    ported yet and raises ``NotImplementedError``.
+    frequency before adjusting it.  Cubic interpolation evaluates the
+    not-a-knot spline of each group's table in plain PyTorch (no kernel
+    serves it, in either package).
     """
 
     _allow_diff_calendars = False

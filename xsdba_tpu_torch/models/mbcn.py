@@ -10,9 +10,10 @@ Everything runs on the device of the data it is given (numpy data on the
 ``device`` option's device).  On float32 CUDA tensors every rotation's factor
 lookup, and the per-block univariate QDM's, is one launch of the row lookup
 kernel (``ops/interp.py:interp1d_table``, K2) with these schemes' default
-``nearest`` method.  ``adapt_freq_thresh`` and ``jitter_under_thresh_value``
-in ``base_kws_vars`` are not ported yet (ROADMAP A7) and raise
-``NotImplementedError``.
+``nearest`` method.  ``base_kws_vars`` may give a variable
+``adapt_freq_thresh`` and ``jitter_under_thresh_value``: its ref, hist and
+sim are jittered, then hist's and sim's blocks frequency-adapted, before
+the block's QDM (as the JAX package does, on every chunk of blocks).
 """
 
 from __future__ import annotations
@@ -31,11 +32,12 @@ from ..ops.quantile import nan_quantile
 from ..ops.rank import rank_pct_rescaled
 from ..ops.rotation import rand_rot_matrix
 from ..ops.segment import gather_groups
-from ..processing import _reordering_core
+from ..processing import _adapt_freq_grouped, _jitter_core, _reordering_core
 from ..utils.container import DataArray, Dataset
 from ..utils.grouper import Grouper
 from ..utils.options import set_options
 from ..utils.tensor import as_tensor, input_tensor, nanstd, numpy_dtype
+from ..utils.units import convert_units_to
 from ._npdft import _escore_stride, _rotate, npdf_transform_core, npdft_adjust_core, npdft_train_core, standardize_lastaxis
 from .base import Adjust, TrainAdjust
 from .eqm import EmpiricalQuantileMapping, QuantileDeltaMapping
@@ -226,6 +228,7 @@ class MBCn(TrainAdjust):
         gi = group.indexes(ref.time)
         gi_sim = group.indexes(sim.time)
 
+        var_attrs = sim.attrs.get("_variable_attrs", {})
         sima = input_tensor(sim.data)                            # [V, ..., T]
         dev = sima.device
         refa = as_tensor(input_tensor(ref.data), device=dev)
@@ -248,7 +251,9 @@ class MBCn(TrainAdjust):
             # --- 1. univariate base adjustment per variable, per block ------
             scen_block = torch.stack(
                 [
-                    _per_block_univariate(refa[iv], hista[iv], sima[iv], rows_ref, rows_sim, base_kws_vars[v], adj_kws)
+                    _per_block_univariate(
+                        refa[iv], hista[iv], sima[iv], rows_ref, rows_sim, base_kws_vars[v], adj_kws, var_attrs.get(v, {}).get("units") or ""
+                    )
                     for iv, v in enumerate(vnames)
                 ],
                 dim=-2,
@@ -280,29 +285,36 @@ class MBCn(TrainAdjust):
         return out
 
 
-def _per_block_univariate(refa, hista, sima, rows_ref, rows_sim, base_kws, adj_kws):
+def _per_block_univariate(refa, hista, sima, rows_ref, rows_sim, base_kws, adj_kws, units: str = ""):
     """Train+adjust the univariate QDM per windowed group block, batched, on
-    one variable's [..., T] tensors.
+    one variable's [..., T] tensors (in ``units``).
 
     Reference ``_adjustment.py:552-559``: inside each block the base is
     trained with group="time" on the block members — i.e. the block axis IS
     the group axis, so this is one grouped QDM over the gather matrices.
-    Returns gathered scen blocks [..., C, Lw].
+    ``jitter_under_thresh_value`` jitters ref, hist and sim first, and
+    ``adapt_freq_thresh`` adapts hist's blocks to ref's and sim's with
+    hist's trained P0 and pth.  Returns gathered scen blocks [..., C, Lw].
     """
     kws = dict(base_kws)
     nquantiles = _quantile_nodes(kws.pop("nquantiles"))
     kind = kws.pop("kind", "+")
-    if kws.pop("adapt_freq_thresh", None) is not None:
-        raise NotImplementedError("adapt_freq_thresh in base_kws_vars is not ported to xsdba_tpu_torch yet (ROADMAP A7).")
-    if kws.pop("jitter_under_thresh_value", None) is not None:
-        raise NotImplementedError("jitter_under_thresh_value in base_kws_vars is not ported to xsdba_tpu_torch yet (ROADMAP A7).")
+    adapt_freq_thresh = kws.pop("adapt_freq_thresh", None)
+    jitter_under = kws.pop("jitter_under_thresh_value", None)
     if kws:
         raise NotImplementedError(f"Unsupported base_kws_vars options: {sorted(kws)}")
 
     q = as_tensor(nquantiles, dtype=refa.dtype, device=refa.device)
+    if jitter_under is not None:
+        lo = convert_units_to(jitter_under, units)
+        refa, hista, sima = (_jitter_core(a, lo, None, None) for a in (refa, hista, sima))
     refg = gather_groups(refa, rows_ref)      # [..., C, Lw]
     histg = gather_groups(hista, rows_ref)
     simg = gather_groups(sima, rows_sim)
+    if adapt_freq_thresh is not None:
+        th = convert_units_to(adapt_freq_thresh, units)
+        histg, P0_ref, P0_hist, pth, _ = _adapt_freq_grouped(refg, histg, th)
+        simg, *_ = _adapt_freq_grouped(None, simg, th, P0_ref=P0_ref, P0_hist=P0_hist, pth=pth)
 
     # QDM train on blocks
     ref_q = nan_quantile(refg, q, axis=-1)

@@ -55,13 +55,6 @@ __all__ = [
 _UNROLL_MAX_NQ = 64
 
 
-def _cubic_unported(method: str):
-    if method == "cubic":
-        raise NotImplementedError(
-            "interp='cubic' is not ported to xsdba_tpu_torch yet (ROADMAP A7); use 'linear' or 'nearest'."
-        )
-
-
 def searchsorted_batched(sorted_x, v, side: str = "right"):
     """Batched searchsorted over the last axis: for each value, the count of
     table entries ``<= v`` (``side="right"``) or ``< v`` (``"left"``)."""
@@ -87,6 +80,111 @@ def _compact_nan_pairs(xq, yq):
     return xs, ys, nvalid
 
 
+def _cubic_slopes(xs, ys, nvalid):
+    """Not-a-knot cubic-spline slopes at the first ``nvalid`` compacted nodes.
+
+    The tridiagonal system of scipy ``CubicSpline`` / ``interp1d(kind=
+    "cubic")``: interior rows ``dx_i s_{i-1} + 2(dx_{i-1}+dx_i) s_i +
+    dx_{i-1} s_{i+1} = 3(dx_i m_{i-1} + dx_{i-1} m_i)`` and the two
+    not-a-knot boundary rows, built on the first ``nvalid`` nodes only (rows
+    past ``nvalid`` are identity; the last boundary row sits at ``nvalid -
+    1``), solved by Thomas elimination, a Python loop over the node axis
+    batched over the leading dims (JAX package: ``ops/interp.py``
+    ``_cubic_slopes``, a ``lax.scan``).  Rows with ``nvalid < 4`` (the
+    caller degrades them to linear) and duplicated nodes (NaN slopes
+    through the division) are where scipy raises.
+
+    Every ``x * y + z`` that the JAX package's compiled programs contract
+    is rounded once here too (:func:`fma`), with the product XLA's CPU
+    backend fuses inside a compiled lookup (found by trying each; equal
+    under ``==`` in float32 and float64): the first product of the interior
+    and last rows' right-hand sides, the second of the first row's, the
+    elimination's ``bk - ak * cp`` and ``rk - ak * rp`` and the back
+    substitution's ``rp - cp * s``.  (``_cubic_slopes`` compiled alone
+    fuses the last row's second product instead.)
+
+    xs, ys: [..., n] compacted (+inf x pads); nvalid: [...].  Returns
+    s [..., n] (unused past ``nvalid``).
+    """
+    n = xs.shape[-1]
+    m = nvalid[..., None].long()                                    # [..., 1]
+    xsf = torch.where(torch.isfinite(xs), xs, 0.0)
+    valid_seg = torch.arange(n - 1, device=xs.device) < (m - 1)      # [..., n-1]
+    dx = torch.where(valid_seg, xsf[..., 1:] - xsf[..., :-1], 1.0)
+    sl = torch.where(valid_seg, (ys[..., 1:] - ys[..., :-1]) / dx, 0.0)
+    dx, sl = torch.broadcast_tensors(dx, sl)
+
+    def seg_at(a, idx):
+        return torch.gather(a, -1, torch.clamp(idx, 0, n - 2))
+
+    def node_at(a, idx):
+        return torch.gather(a, -1, torch.clamp(idx, 0, n - 1).expand(a.shape[:-1] + (1,)))
+
+    # interior coefficients, aligned so index i holds dx_{i-1} / dx_i
+    one_seg = torch.ones_like(dx[..., :1])
+    dx_im1 = torch.cat([one_seg, dx], dim=-1)
+    dx_i = torch.cat([dx, one_seg], dim=-1)
+    sl_im1 = torch.cat([torch.zeros_like(one_seg), sl], dim=-1)
+    sl_i = torch.cat([sl, torch.zeros_like(one_seg)], dim=-1)
+    a = dx_i
+    b = 2.0 * (dx_im1 + dx_i)
+    c = dx_im1
+    r = 3.0 * fma(dx_i, sl_im1, dx_im1 * sl_i)
+
+    # first boundary row (index 0): not-a-knot start
+    dx0, dx1 = dx[..., 0:1], dx[..., 1:2]
+    d0 = xsf[..., 2:3] - xsf[..., 0:1]
+    r_first = fma(dx0 * dx0, sl[..., 1:2], (dx0 + 2.0 * d0) * dx1 * sl[..., 0:1]) / torch.where(d0 != 0, d0, 1.0)
+    # last boundary row (index nvalid - 1): not-a-knot end
+    m = m.expand(dx.shape[:-1] + (1,))
+    dxm2, dxm3 = seg_at(dx, m - 2), seg_at(dx, m - 3)
+    slm2, slm3 = seg_at(sl, m - 2), seg_at(sl, m - 3)
+    d2 = node_at(xsf, m - 1) - node_at(xsf, m - 3)
+    r_last = fma(dxm2 * dxm2, slm3, (2.0 * d2 + dxm2) * dxm3 * slm2) / torch.where(d2 != 0, d2, 1.0)
+
+    ii = torch.arange(n, device=xs.device)
+    is0, is_last, is_pad = ii == 0, ii == (m - 1), ii >= m
+    a = torch.where(is_pad, 0.0, torch.where(is_last, d2, torch.where(is0, 0.0, a)))
+    b = torch.where(is_pad, 1.0, torch.where(is_last, dxm3, torch.where(is0, dx1, b)))
+    c = torch.where(is_pad | is_last, 0.0, torch.where(is0, d0, c))
+    r = torch.where(is_pad, 0.0, torch.where(is_last, r_last, torch.where(is0, r_first, r)))
+
+    # Thomas: forward elimination, then back substitution
+    a, b, c, r = torch.broadcast_tensors(a, b, c, r)
+    cps, rps = [], []
+    cp = rp = torch.zeros_like(a[..., 0])
+    for k in range(n):
+        ak = a[..., k]
+        denom = fma(-ak, cp, b[..., k])
+        denom = torch.where(denom == 0, torch.nan, denom)
+        cp, rp = c[..., k] / denom, fma(-ak, rp, r[..., k]) / denom
+        cps.append(cp)
+        rps.append(rp)
+    s = [None] * n
+    s_next = torch.zeros_like(cp)
+    for k in range(n - 1, -1, -1):
+        s_next = s[k] = fma(-cps[k], s_next, rps[k])
+    return torch.stack(s, dim=-1)
+
+
+def _eval_cubic_segment(v, x0, x1, y0, y1, s0, s1, lin):
+    """Hermite evaluation of one cubic segment from its end slopes (scipy
+    ``_cubic.py``'s coefficient form), its nested products rounded once as
+    the JAX package's compiled adjust rounds them, and ``tc / hs`` as XLA
+    rewrites it, ``(s0 + s1 - 2 mseg) / (hs * hs)``; ``lin`` where the
+    segment is degenerate (``h == 0`` never happens on a valid table:
+    duplicated nodes already carry NaN slopes)."""
+    h = x1 - x0
+    hs = torch.where(h > 0, h, 1.0)
+    mseg = (y1 - y0) / hs
+    curv = s0 + s1 - 2.0 * mseg
+    tc = curv / hs
+    dlt = v - x0
+    inner = fma(dlt, curv / (hs * hs), (mseg - s0) / hs - tc)
+    cub = fma(dlt, fma(dlt, inner, s0), y0)
+    return torch.where(h > 0, cub, lin)
+
+
 def _finish(out, v, xs, ys, x_last, y_last, nvalid, extrap: str):
     """Extrapolation, empty-table and NaN-value rules shared by both forms."""
     below = v < xs[..., :1]
@@ -102,20 +200,27 @@ def _finish(out, v, xs, ys, x_last, y_last, nvalid, extrap: str):
     return torch.where(torch.isnan(v), torch.nan, out)
 
 
-def _blend(v, x0, x1, y0, y1, method: str):
+def _blend(v, x0, x1, y0, y1, method: str, cubic=None):
+    """The value in the segment [x0, x1] → [y0, y1]: ``cubic`` is (s0, s1,
+    nvalid), the segment's end slopes and the table's valid count."""
     # a single-valid-pair table pairs y0 with the NaN pad slot: t is 0
     # there, but 0 * (NaN - y0) would still poison the blend
     y1 = torch.where(torch.isnan(y1), y0, y1)
     dx = x1 - x0
     t = torch.where(dx > 0, (v - x0) / torch.where(dx == 0, 1, dx), 0.0)
     t = torch.where(torch.isfinite(t), t, 0.0)
-    if method == "linear":
-        # y0 + t * (y1 - y0), fused as the JAX package's compiled adjust fuses it
-        return fma(t, y1 - y0, y0)
     if method == "nearest":
         return torch.where(torch.abs(v - x0) <= torch.abs(x1 - v), y0, y1)
-    _cubic_unported(method)
-    raise NotImplementedError(f"method={method!r}")
+    if method not in ("linear", "cubic"):
+        raise NotImplementedError(f"method={method!r}")
+    # y0 + t * (y1 - y0), fused as the JAX package's compiled adjust fuses it
+    lin = fma(t, y1 - y0, y0)
+    if method == "linear":
+        return lin
+    s0, s1, nvalid = cubic
+    out = _eval_cubic_segment(v, x0, x1, y0, y1, s0, s1, lin)
+    # scipy raises below 4 nodes; the lookup degrades to linear there
+    return torch.where(nvalid[..., None] < 4, lin, out)
 
 
 def _interp_unrolled(v, xs, ys, nvalid, method: str, extrap: str):
@@ -125,11 +230,12 @@ def _interp_unrolled(v, xs, ys, nvalid, method: str, extrap: str):
     The nq axis is unrolled: count = sum_k (xs_k <= v) locates the segment,
     masked accumulation selects the bounds.  Above ``_UNROLL_MAX_NQ`` entries
     a binary-search + gather variant with identical semantics takes over.
-    This is also the plain twin of the CUDA lookup kernel.
+    This is also the plain twin of the CUDA lookup kernel.  Every cubic
+    lookup takes the gathered form, which reads the table a fixed number of
+    times whatever nq is.
     """
-    _cubic_unported(method)
     nq = xs.shape[-1]
-    if nq > _UNROLL_MAX_NQ:
+    if nq > _UNROLL_MAX_NQ or method == "cubic":
         return _interp_gathered(v, xs, ys, nvalid, method, extrap)
     last = torch.clamp(nvalid - 1, 0, nq - 1)[..., None]
 
@@ -167,9 +273,8 @@ def _interp_unrolled(v, xs, ys, nvalid, method: str, extrap: str):
 
 def _interp_gathered(v, xs, ys, nvalid, method: str, extrap: str):
     """Large-table form of :func:`_interp_unrolled` — binary-search locate
-    + gather bound selection.  The same semantics; used above
-    ``_UNROLL_MAX_NQ`` nodes."""
-    _cubic_unported(method)
+    + gather bound selection.  The same semantics, bit for bit; used above
+    ``_UNROLL_MAX_NQ`` nodes and for every cubic lookup."""
     nq = xs.shape[-1]
     cnt = searchsorted_batched(xs, v, side="right")
     # a NaN value lands anywhere; its output is NaN whatever it selects
@@ -188,7 +293,12 @@ def _interp_gathered(v, xs, ys, nvalid, method: str, extrap: str):
     last = torch.clamp(nvalid - 1, 0, nq - 1)[..., None] * torch.ones_like(k0)
     x_last = take(xs, last)
     y_last = take(ys, last)
-    out = _blend(v, x0, x1, y0, y1, method)
+    cubic = None
+    if method == "cubic":
+        sp = _cubic_slopes(xs, ys, nvalid)
+        s0 = take(sp, k0)
+        cubic = (s0, torch.where(at_end, s0, take(sp, k1)), nvalid)
+    out = _blend(v, x0, x1, y0, y1, method, cubic)
     return _finish(out, v, xs, ys, x_last, y_last, nvalid, extrap)
 
 
@@ -199,8 +309,10 @@ def interp1d_table(v, xq, yq, method: str = "linear", extrap: str = "constant"):
     NaN pairs in the table are ignored; NaN in v stays NaN.
     ``extrap``: 'constant' fills beyond the table with the first/last valid
     yq; 'nan' fills with NaN (reference utils.py:353-368).
-    ``method``: 'linear' or 'nearest' ('cubic' is ROADMAP A7).  Either,
-    with constant extrapolation, on float32 tables of at most
+    ``method``: 'linear', 'nearest' or 'cubic' (the not-a-knot spline of
+    scipy ``interp1d(kind="cubic")``; rows of fewer than 4 valid nodes
+    degrade to linear where scipy raises).  Linear or nearest, with
+    constant extrapolation, on float32 tables of at most
     ``KERNEL_MAX_NQ`` nodes goes through the 2-D lookup kernel's wrapper
     (``interp_table_2d``: the CUDA kernel on a CUDA tensor, its plain twin
     on a CPU tensor), one table per row of v's broadcast leading dims.

@@ -71,9 +71,10 @@ _OPS = {">": operator.gt, "<": operator.lt, ">=": operator.ge, "<=": operator.le
 class StatisticalProperty:
     """Wraps a compute function with the reference Indicator contract
     (``properties.py:41-113``): aspect in {marginal, temporal, multivariate,
-    spatial}, allowed groups, a default measure name."""
+    spatial}, allowed groups, a default measure name.  ``units`` is accepted
+    and ignored, as the JAX package's ``StatisticalProperty`` does."""
 
-    def __init__(self, identifier, aspect, compute, allowed_groups=None, measure="bias"):
+    def __init__(self, identifier, aspect, compute, allowed_groups=None, measure="bias", units=None):
         self.identifier = identifier
         self.aspect = aspect
         self._compute = compute
