@@ -161,6 +161,20 @@ Phases, each reported on lines of its own:
    at the headline shape, grouped (K1) and ungrouped (K2), equal to the CPU
    port under ==; each with its time, launches and peak memory beside the
    card's name and power limit;
+5h. the shell modules users call around the schemes (:func:`shell_phase`):
+   ``cli.main(["selftest"])`` on the card (0, its residual equal to the CPU
+   port's to 1e-6); ``nbutils.quantile`` over ``time`` of the headline sim
+   (numpy [512, 54750] f32, nq 50) and ``nbutils.vecquantiles`` at ranks
+   drawn from numpy seed 0, each on the card, its first 8 sites equal to
+   the CPU port's under ==, timed by the host clock with the host-to-device
+   copy in it; ``base.map_groups`` of a monthly mean of the same sim on the
+   card (the first 8 sites at 2e-6 of the CPU port); ``utils.profiling.trace``
+   around the public train and adjust of the heavy windowed EQM (merge
+   engine), whose Chrome trace must name K3, K5, K6 and K1
+   (``sort_rows_warp_kernel``, ``build_levels_kernel``,
+   ``fold_windows_kernel``, ``interp_rows_kernel``); phase 6 times the
+   fused QDM step with ``utils.profiling.timed`` beside its CUDA-event
+   median, and ``timed``'s best is at least the events' least sample;
 6. times (2 warm-ups, median of 5 and the spread): the fused QDM, windowed
    EQM (merge) and selection steps in gridpoint-years/s (CUDA events), the
    public calls on the same data (host clock), each kernel against its twin
@@ -241,6 +255,7 @@ from xsdba_tpu_torch.ops.quantile import merge_slab
 from xsdba_tpu_torch.ops.rotation import rand_rot_matrix
 from xsdba_tpu_torch.ops.segment import gather_groups
 from xsdba_tpu_torch.ops.selquant import plan_labels
+from xsdba_tpu_torch.utils import profiling
 
 N_SITES, N_YEARS, NQ = 512, 150, 50
 CHECK_SITES = 8
@@ -1587,6 +1602,96 @@ def a7_phase(dev, smi):
     return out
 
 
+
+# phase 5h: the shell modules; the trace must name these kernels (K3, K5, K6, K1)
+TRACE_KERNELS = ("sort_rows_warp_kernel", "build_levels_kernel", "fold_windows_kernel", "interp_rows_kernel")
+SELFTEST_TOL = 1e-6
+
+
+def shell_phase(smi, heavy):
+    """Phase 5h (module docstring): the CLI's selftest, ``nbutils``,
+    ``base.map_groups`` and ``utils.profiling.trace`` on the card, each held
+    against the CPU port.  ``heavy`` is (t, ref, hist, sim) of the heavy
+    problem on the card.  Returns the trace's launches."""
+    import os
+    import shutil
+    import tempfile
+
+    from xsdba_tpu_torch import base, cli, nbutils
+
+    # 1. the selftest: its EQM on the device option's device (CUDA), then the CPU port's
+    t0 = time.perf_counter()
+    rc = cli.main(["selftest"])
+    selftest_s = time.perf_counter() - t0
+    bias, where = cli._selftest_run()
+    with xp.set_options(device="cpu"):
+        bias_cpu, where_cpu = cli._selftest_run()
+    assert rc == 0 and where.type == "cuda" and where_cpu.type == "cpu", (rc, where, where_cpu)
+    assert abs(bias - bias_cpu) <= SELFTEST_TOL, f"selftest residual {bias!r} on the card, {bias_cpu!r} on the CPU"
+    print(f"[shell] cli selftest: rc {rc} on {where} in {selftest_s:.3f} s (first call, host clock); residual {bias:.9f}, "
+          f"the CPU port's {bias_cpu:.9f} (diff {abs(bias - bias_cpu):.3g}, tolerance {SELFTEST_TOL}) [{smi}]", flush=True)
+
+    # 2. nbutils on the headline sim, numpy on the host: each call copies it to the card
+    t, (_, _, sim) = example_problem(N_SITES, N_YEARS)
+    cut = slice(0, CHECK_SITES)
+    q = equally_spaced_nodes(NQ)
+    ranks = np.random.default_rng(0).random(N_SITES).astype(np.float32)
+    monthly_mean = base.map_groups(group_mean=["<PROP>"])(lambda block, *, dim: block.mean(dim))
+    calls = {
+        "quantile": lambda da, r: nbutils.quantile(da, q, "time").data,
+        "vecquantiles": lambda da, r: nbutils.vecquantiles(da, r, "time").data,
+        "map_groups": lambda da, r: monthly_mean(da, group="time.month").data,
+    }
+    for name, fn in calls.items():
+        call = lambda: fn(_da(sim, t, "sim"), ranks)  # noqa: E731
+        got = call()
+        with xp.set_options(device="cpu"):
+            want = fn(_da(sim[cut], t, "sim"), ranks[cut])
+        assert got.is_cuda and bool(torch.isfinite(got).all()), f"nbutils {name}: {got.device}, finite {bool(torch.isfinite(got).all())}"
+        if name == "map_groups":
+            err = _max_abs(got[cut].cpu(), want)
+            torch.testing.assert_close(got[cut].cpu(), want, **TOL)
+            held = f"max abs diff {err:.3g} (tolerance {TOL['rtol']})"
+        else:
+            n_diff = int((~_nan_equal(got[cut].cpu(), want)).sum())
+            assert n_diff == 0, f"nbutils {name}: {n_diff} values differ from the CPU port"
+            held = "equal under =="
+        ms = _summary(_host_ms(call))
+        label = "base.map_groups monthly mean" if name == "map_groups" else f"nbutils.{name}"
+        print(f"[shell] {label} of numpy {sim.shape} f32 -> {tuple(got.shape)} on {got.device}: first {CHECK_SITES} sites vs the CPU port "
+              f"{held}; {_fmt(ms)} (host clock, the host-to-device copy in it) [{smi}]", flush=True)
+        del got
+
+    # 3. a trace of the heavy windowed EQM's public train and adjust
+    th, href, hhist, hsim = heavy
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    logdir = tempfile.mkdtemp(prefix="trace_", dir=build)
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    with profiling.trace(logdir):
+        hscen = run_windowed_path(href, hhist, hsim, th)
+    trace_s = time.perf_counter() - t0
+    counts = _counts()
+    (fname,) = os.listdir(logdir)
+    path = os.path.join(logdir, fname)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e.get("name", "") for e in events if str(e.get("cat", "")).lower() == "kernel"]
+    named = {k: sum(k in n for n in kernels) for k in TRACE_KERNELS}
+    size = os.path.getsize(path)
+    shutil.rmtree(logdir)
+    assert bool(torch.isfinite(hscen).all()), "traced heavy EQM: non-finite output"
+    assert all(named.values()), f"the trace does not name every kernel of the path: {named}"
+    assert all(counts[k] >= 1 for k in ("sort_rows_alternating", "build_levels", "fold_windows", "interp_table_3d")), f"traced heavy EQM: launches {counts}"
+    print(f"[shell] profiling.trace of the public windowed EQM train+adjust {tuple(hscen.shape)} f32 (doy+{HEAVY_WINDOW}, merge engine): "
+          f"{trace_s:.3f} s under the profiler (host clock), a {size / 1e6:.1f} MB Chrome trace of {len(events)} events, {len(kernels)} kernels; "
+          f"the path's kernels named: {named}; launches {counts} [{smi}]", flush=True)
+    del hscen
+    return counts
+
+
 def main() -> int:
     # 1. device
     if not torch.cuda.is_available():
@@ -2044,6 +2149,11 @@ def main() -> int:
     a7_counts = a7_phase(dev, smi)
     print(f"[a7] launches by item (kernels launched at least once): {({p: {k: n for k, n in c.items() if n} if 'train' not in c else c for p, c in a7_counts.items()})}", flush=True)
 
+    # 5h. the shell: the CLI's selftest, nbutils, base.map_groups and a
+    # profiling trace of the heavy windowed EQM, each held against the CPU port
+    shell_counts = shell_phase(smi, (th, href, hhist, hsim))
+    print(f"[shell] the trace's launches (kernels launched at least once): {({k: n for k, n in shell_counts.items() if n})}", flush=True)
+
     # 6. times
     q = torch.as_tensor(equally_spaced_nodes(NQ), dtype=torch.float32, device=dev)
     idx = [torch.as_tensor(a, device=dev) for a in (gi.gather_idx, gi.group_idx, gi.scatter_slot)]
@@ -2055,6 +2165,12 @@ def main() -> int:
     fused = _summary(_time_ms(qdm_step))
     print(f"[time] fused qdm_train_adjust_core {N_SITES} sites x {N_YEARS} yr: {N_SITES * N_YEARS / (fused['median_ms'] / 1e3):,.0f} "
           f"gridpoint-years/s ({_fmt(fused)})", flush=True)
+    # phase 5h's timed: the host clock around each call and a synchronize on its output's device
+    timed_s, _ = profiling.timed(qdm_step, reps=5, warmup=2)
+    timed_ms = timed_s * 1e3
+    assert timed_ms >= fused["min_ms"], f"timed's best {timed_ms:.3f} ms is below the least CUDA-event sample {fused['min_ms']:.3f} ms"
+    print(f"[shell] profiling.timed of the fused QDM step: best of 5 {timed_ms:.3f} ms (host clock); CUDA events median {fused['median_ms']:.3f} ms, "
+          f"least {fused['min_ms']:.3f} ms; timed - median {timed_ms - fused['median_ms']:+.3f} ms [{smi}]", flush=True)
     api = _summary(_host_ms(lambda: run_main_path(ref, hist, sim, t)))
     print(f"[time] public QDM train+adjust, same data (host clock): {_fmt(api)}", flush=True)
 

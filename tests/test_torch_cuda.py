@@ -988,3 +988,55 @@ def test_stack_adjust_unstack_on_the_card(cuda):
     with xp.set_options(device="cpu"):
         _, want = run()
     torch.testing.assert_close(got.cpu(), want, rtol=2e-6, atol=2e-6)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_nbutils_on_the_card_equals_the_cpu_port(cuda, dtype):
+    """Numpy data goes to the card; the unfused type-7 arithmetic is one
+    kernel an operation there, so the card equals the CPU port under ==."""
+    from xsdba_tpu_torch import nbutils
+
+    t, (_, _, sim) = example_problem(16, 3)
+    sim = sim.astype(dtype)
+    sim[3, ::7] = np.nan
+    sim[5] = np.nan
+    da = xp.DataArray(sim, ("site", "time"), {"time": t}, {"units": "K"}, "sim")
+    q = equally_spaced_nodes(50)
+    ranks = np.random.default_rng(0).random(16).astype(dtype)
+    got = [nbutils.quantile(da, q, "time").data, nbutils.vecquantiles(da, ranks, "time").data, nbutils.quantile(sim, q, 1)]
+    with xp.set_options(device="cpu"):
+        want = [nbutils.quantile(da, q, "time").data, nbutils.vecquantiles(da, ranks, "time").data, nbutils.quantile(sim, q, 1)]
+    for g, w in zip(got, want):
+        assert g.is_cuda
+        assert _nan_equal(g.cpu(), w)
+
+
+def test_profiling_on_the_card(cuda, tmp_path):
+    """``trace`` names the card's kernels in its file and refuses a capture
+    with no CUDA activity; ``timed`` synchronises on the output's device."""
+    import json
+
+    from xsdba_tpu_torch.utils import profiling
+
+    x = torch.rand(64, 4096, device=cuda)
+    with profiling.trace(str(tmp_path / "t")):
+        torch.sort(x, dim=-1)
+    (f,) = (tmp_path / "t").iterdir()
+    assert any(e.get("cat") == "kernel" for e in json.loads(f.read_text())["traceEvents"])
+    with pytest.raises(RuntimeError, match="no CUDA activity"):
+        with profiling.trace(str(tmp_path / "u")):
+            torch.ones(3).sum()
+    assert not (tmp_path / "u").exists()
+    best, out = profiling.timed(lambda: torch.sort(x, dim=-1).values, reps=3)
+    assert best > 0 and out.is_cuda
+
+
+def test_selftest_on_the_card(cuda, capsys):
+    from xsdba_tpu_torch import cli
+
+    assert cli.main(["selftest"]) == 0
+    assert "selftest on cuda" in capsys.readouterr().out
+    bias, device = cli._selftest_run()
+    with xp.set_options(device="cpu"):
+        bias_cpu, _ = cli._selftest_run()
+    assert device.type == "cuda" and abs(bias - bias_cpu) <= 1e-6

@@ -134,6 +134,16 @@ def test_chunked_batch_agrees(monkeypatch):
     _equal(got[:, 0], engine)
 
 
+@pytest.mark.parametrize("Wb,nb_chunk,g_chunk", [(32, 4, 100), (128, 1, 365)])
+def test_block_sizes_change_no_result(Wb, nb_chunk, g_chunk):
+    """The reference's block and chunk sizes reach the core and leave every
+    selected value as it is (pure performance knobs in both packages)."""
+    _, gp = _indexes(5)
+    x, q, engine, _ = _reference(np.float32, 5)
+    got = ps.selection_windowed_quantile(torch.from_numpy(x), gp.merge_plan, q, Wb=Wb, nb_chunk=nb_chunk, g_chunk=g_chunk)
+    _equal(got, engine)
+
+
 def test_emit_mode_raises():
     _, gp = _indexes(5)
     x, q, _, _ = _reference(np.float32, 5)

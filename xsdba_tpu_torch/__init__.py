@@ -81,13 +81,16 @@ __all__ = [
 def __getattr__(name):
     # The JAX package's lazy public API (``xsdba_tpu/__init__.py``): any
     # public name of these modules, searched in this order, resolves at the
-    # top level (so ``mean`` is ``properties.mean``).
+    # top level (so ``mean`` is ``properties.mean``).  Their submodules do
+    # not: ``from xsdba_tpu_torch import base`` must import the top-level
+    # ``base`` module, not find ``models.base`` (ROADMAP C27).
     import importlib
+    import inspect
 
     if name.startswith("_"):
         raise AttributeError(f"module 'xsdba_tpu_torch' has no attribute {name!r}")
     for modname in ("models", "processing", "detrending", "properties", "measures"):
         mod = importlib.import_module(f".{modname}", __name__)
-        if hasattr(mod, name):
+        if hasattr(mod, name) and not inspect.ismodule(getattr(mod, name)):
             return getattr(mod, name)
     raise AttributeError(f"module 'xsdba_tpu_torch' has no attribute {name!r}")

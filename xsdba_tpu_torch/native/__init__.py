@@ -25,7 +25,7 @@ import numpy as np
 
 from ..ops.cuda._build import _build_dir
 
-__all__ = ["emd", "emd_ssp", "library_path"]
+__all__ = ["emd", "emd_ssp", "have_native", "library_path"]
 
 SOURCE = Path(__file__).resolve().parent / "emd.cpp"
 CXX_FLAGS = ("-O3", "-shared", "-fPIC")
@@ -64,6 +64,17 @@ def _load() -> ctypes.CDLL:
                 fn.argtypes = [ctypes.c_int, ctypes.c_int, arr, arr, arr, arr]
             _lib = lib
         return _lib
+
+
+def have_native() -> bool:
+    """Whether the solver's library builds (where it is not built yet) and
+    loads here.  It only reports: ``emd`` and ``emd_ssp`` still raise when
+    the build fails, and nothing falls back to another solver."""
+    try:
+        _load()
+    except (OSError, RuntimeError):  # g++ missing (FileNotFoundError), failing, or a library that does not load
+        return False
+    return True
 
 
 def _solve(name: str, mu, nu, cost) -> np.ndarray:

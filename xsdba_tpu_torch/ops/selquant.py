@@ -301,6 +301,9 @@ def selection_windowed_quantile(
     quantiles,
     alpha: float = 1.0,
     beta: float = 1.0,
+    Wb: int = 64,
+    nb_chunk: int = 128,
+    g_chunk: int = 64,
     mode: str | None = None,
     sort_impl: str | None = None,
 ):
@@ -309,7 +312,9 @@ def selection_windowed_quantile(
     ``plan`` is a :class:`~xsdba_tpu_torch.utils.grouper.WindowMergePlan`
     whose ``sel_labels`` is not None; ``x`` [..., T] a tensor.  Returns
     [..., G, nq], equal to the re-sort oracle (``grouped_nan_quantile`` of
-    the plan's gather matrix) in the selected elements."""
+    the plan's gather matrix) in the selected elements.  ``Wb``,
+    ``nb_chunk`` and ``g_chunk`` size the blocks and chunks
+    (:func:`selection_windowed_quantile_core`); they change no result."""
     if plan.sel_labels is None:
         raise ValueError("plan has no interval membership; use the merge path")
     G = int(plan.fast_mask.shape[0])
@@ -318,11 +323,11 @@ def selection_windowed_quantile(
     sort_impl = default_sort_impl(x.dtype, x.device) if sort_impl is None else sort_impl
     lead = x.shape[:-1]
     B = int(np.prod(lead, dtype=np.int64))
-    chunk = max_chunk(G, int(np.shape(quantiles)[0]), x.shape[-1])
+    chunk = max_chunk(G, int(np.shape(quantiles)[0]), x.shape[-1], Wb)
 
     def run(xc):
         return selection_windowed_quantile_core(
-            xc, lab, quantiles, G=G, mode=mode, sort_impl=sort_impl, alpha=alpha, beta=beta
+            xc, lab, quantiles, G=G, Wb=Wb, nb_chunk=nb_chunk, g_chunk=g_chunk, mode=mode, sort_impl=sort_impl, alpha=alpha, beta=beta
         )
 
     if B <= chunk:
