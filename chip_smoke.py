@@ -39,13 +39,22 @@ Phases, each reported on lines of its own:
    lookup's ``nearest`` method (K1 and K2) on every lookup case above and,
    with rank-like values in [0, 1] (exact 0 and 1, ties half way between
    nodes), at the two MBCn shapes ([192, 10950] nq 50 and
-   [143616, 930] nq 20), under ``==``;
+   [143616, 930] nq 20), under ``==``; the emission kernel (the selection
+   engine's emit mode) against its twin by bit pattern: 8 sites of the
+   selection data at windows 5 and 31, f32 and f64, finite and NaN-masked
+   (two sites all NaN), wet-day rows of +-0.0 ties where the twin's 2
+   slots overflow, and the selection path's first site chunk of its 448
+   rows;
 4. main path: ``QuantileDeltaMapping.train(...).adjust(...)`` on CUDA
    tensors of 512 sites x 150 noleap years, f32, ``nquantiles=50``,
    monthly groups; finite, its adjust one launch of the bracketed lookup
    and none of K1, and equal to the port's CPU path (both blend fused) on
    the first 8 sites at rtol = atol = 2e-6; then (4b) ``group="time"`` on
-   the same data, through K2;
+   the same data, through K2; then (4c) the device-copy cache: the public
+   QDM train on the numpy arrays and two adjusts of the same sim, uploads
+   counted (2, 1, 0: the second adjust uploads nothing), the two scen
+   equal, the adjust timed by the host clock with the cached sim and with
+   the cache cleared before each call;
 5. heavy: ``EmpiricalQuantileMapping.train(group="time.dayofyear",
    window=31).adjust(interp="linear")`` on CUDA tensors of 256 sites x 150
    noleap years (``bench.py``'s heavy data: seed 1, ref ~ N(10, 2), hist ~
@@ -60,7 +69,10 @@ Phases, each reported on lines of its own:
    a CUDA result, finite, through K7 and K1 and no merge kernel, equal on
    the first 4 sites to the port's CPU path and to the re-sort oracle;
    again on a NaN-masked copy (2 sites all NaN, 10 % of the values of 4
-   more NaN), first 8 sites;
+   more NaN), first 8 sites; both again under ``selection_mode="emit"``:
+   through K7, the emission kernel and K1 and no merge kernel, NaN exactly
+   where the data is missing, scen ``==`` to the gather engine's on every
+   value;
    5c. multivariate (numpy inputs, so on the card): MBCn-a, ``bench.py``'s
    workload (64 sites x 3 variables x 30 noleap years, N(10, 3) f32 from
    numpy seeds 1 and 2, ``group="time"``, nq 50, 20 rotations,
@@ -176,8 +188,13 @@ Phases, each reported on lines of its own:
    fused QDM step with ``utils.profiling.timed`` beside its CUDA-event
    median, and ``timed``'s best is at least the events' least sample;
 6. times (2 warm-ups, median of 5 and the spread): the fused QDM, windowed
-   EQM (merge) and selection steps in gridpoint-years/s (CUDA events), the
-   public calls on the same data (host clock), each kernel against its twin
+   EQM (merge) and selection steps (at 224 sites the gather and emit
+   engines and the merge engine in turns; the emit step's peak memory
+   above the held, under 2 GiB) in gridpoint-years/s (CUDA events), the
+   public calls on the same data (host clock; here and in every phase, a
+   call timed by the host clock repeatedly starts from an empty device-copy
+   cache, so it uploads its numpy inputs as before the cache, and only
+   phase 4c's cached adjust reuses a copy), each kernel against its twin
    (CUDA events, in turns; a kernel's sample is the mean of 10 calls queued
    behind a spin of the card, so the host's launch cost stays out of it)
    and against one PyTorch call computing the same function where there is
@@ -210,7 +227,8 @@ path's, fma's the heavy path's, at its extraction's broadcast lerp; the
 ``nearest`` rows: K2's launches and shape are MBCn-b's, K1's launches the
 small NpdfTransform's and its timed shape the windowed adjust's, the same
 as its ``linear`` row; ``K1 nearest (long rows)``: config 2's launches, at
-its monthly partition shape [512, 14, 4650]), each
+its monthly partition shape [512, 14, 4650]; the emission's launches are
+5b's finite emit run, its shape one site chunk of that run), each
 with its least possible time on an H100 (``bound_ms``: the
 larger of its bytes over 3.35 TB/s and its operations over 67 TFLOP/s); the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device the
@@ -238,14 +256,14 @@ from xsdba_tpu_torch.models._algos import (
     qdm_train_adjust_core,
     qm_adjust_core,
 )
-from xsdba_tpu_torch.models import extremes, mbcn, otc
+from xsdba_tpu_torch.models import _wrap, extremes, mbcn, otc
 from xsdba_tpu_torch.models import pca as pca_mod
 from xsdba_tpu_torch.models.dqm import _scaled
 from xsdba_tpu_torch.models._wrap import device_brackets
 from xsdba_tpu_torch.ops import merge, sort
 from xsdba_tpu_torch.ops.clusters import cluster_maxima
 from xsdba_tpu_torch.ops.correction import equally_spaced_nodes
-from xsdba_tpu_torch.ops.cuda import _build, fma_kernel, interp_kernel
+from xsdba_tpu_torch.ops.cuda import _build, emit_kernel, fma_kernel, interp_kernel
 from xsdba_tpu_torch.ops.detrend import grouped_polyfit_trend
 from xsdba_tpu_torch.ops.fitting import gpd_fit_ml
 from xsdba_tpu_torch.ops.interp import _compact_nan_pairs
@@ -254,7 +272,7 @@ from xsdba_tpu_torch.ops.pca import pc_transform_matrix
 from xsdba_tpu_torch.ops.quantile import merge_slab
 from xsdba_tpu_torch.ops.rotation import rand_rot_matrix
 from xsdba_tpu_torch.ops.segment import gather_groups
-from xsdba_tpu_torch.ops.selquant import plan_labels
+from xsdba_tpu_torch.ops.selquant import _emit_operands, default_sort_impl, max_chunk, plan_labels
 from xsdba_tpu_torch.utils import profiling
 
 N_SITES, N_YEARS, NQ = 512, 150, 50
@@ -265,6 +283,10 @@ SMALL_WINDOW = 5
 # the selection path: the most sites the fused selection step takes at
 # nq = 50 (2 * S * 365 * 101 * 128 <= 2^31), a multiple of 8
 SEL_SITES, SEL_CHECK, SEL_NAN_CHECK = 224, 4, 8
+# the emission kernel against its twin: sites of the selection data (ref and
+# hist: twice as many rows), and the wet-day rows where the twin's slots
+# overflow; the emit step's peak above what is held stays under EMIT_PEAK
+EMIT_CHECK, EMIT_WET_ROWS, EMIT_WET_SLOTS, EMIT_PEAK = 8, 8, 2, 2 << 30
 TOL = dict(rtol=2e-6, atol=2e-6)
 # the multivariate paths: bench.py's MBCn workload (a) and the documented
 # dayofyear usage at a width that fills the card (b)
@@ -329,6 +351,9 @@ KERNELS = {
     "K1 nearest": dict(name="interp_table_3d[nearest]", route="cuda", source=_SRC + "interp_kernel.cu", replaces=_PALLAS + "interp_kernel.py:101"),
     "K2 nearest": dict(name="interp_table_2d[nearest]", route="cuda", source=_SRC + "interp_kernel.cu", replaces=_PALLAS + "interp_kernel.py:141"),
     "K1 nearest (long rows)": dict(name="interp_table_3d[nearest, long rows]", route="cuda", source=_SRC + "interp_kernel.cu", replaces=_PALLAS + "interp_kernel.py:101"),
+    # the selection engine's dense emission: plain JAX in the reference, no Pallas kernel
+    "emit": dict(name="emit", route="cuda", source=_SRC + "emit_kernel.cu",
+                 replaces="xsdba_tpu/ops/selquant.py:336 (the emit mode's _window / _run / _chunk_emit / _assemble, plain JAX)"),
 }
 
 
@@ -920,6 +945,51 @@ def _compare_sort(label, key, lab):
     return 0.0
 
 
+def wet_day_rows(B, T, seed=3):
+    """Precipitation-like rows [B, T] float64: 70 % of the days exactly
+    zero, +0.0 or -0.0 at random, the rest gamma(0.6, 4): the zeros tie, so
+    a group's ranks crowd into one chunk of the sorted row."""
+    rng = np.random.default_rng(seed)
+    x = rng.gamma(0.6, 4.0, (B, T))
+    dry = rng.random((B, T)) < 0.7
+    x[dry] = np.where(rng.random(int(dry.sum())) < 0.5, 0.0, -0.0)
+    return x
+
+
+def emit_operands(x, plan):
+    """The emission's operands for rows ``x`` [B, T] on the card under
+    ``plan``: stages 1 and 2a as the selection path runs them (K7 for
+    float32, ``torch.sort`` for float64), nq = NQ."""
+    q = equally_spaced_nodes(NQ)
+    G = int(plan.fast_mask.shape[0])
+    return _emit_operands(x, plan_labels(plan, x.device), q, G=G, sort_impl=default_sort_impl(x.dtype, x.device))
+
+
+def emit_overflows(ops, slots):
+    """Whether some chunk of ``ops`` needs more than ``slots`` ranks of a
+    group, so that the twin reruns its emission at nq slots."""
+    svals, slab, clo, r_left, r_right, n, chunk = ops
+    chi = torch.cat([clo[:, 1:], n[:, None]], dim=1)
+    return any(int(emit_kernel._windows(rk, clo, chi)[1].max()) > slots for rk in (r_left, r_right))
+
+
+def _bits(a):
+    return a.view(torch.int32 if a.dtype == torch.float32 else torch.int64)
+
+
+def _compare_emit(label, ops, slots=32):
+    """The emission kernel against its twin (``slots`` for the twin): left,
+    right and the max, by bit pattern."""
+    got = emit_kernel.emit(*ops, slots=slots)
+    want = emit_kernel.emit_reference(*ops, slots=slots)
+    torch.cuda.synchronize()
+    n_diff = [int((_bits(g) != _bits(w)).sum()) for g, w in zip(got, want)]
+    print(f"[kernel] emit {label} {tuple(ops[0].shape)}, chunk {ops[-1]}: {n_diff} values of (left, right, max) differ from the twin "
+          "by bit pattern", flush=True)
+    assert not any(n_diff), f"emit {label}: kernel and twin disagree"
+    return max(_max_abs(g, w) for g, w in zip(got, want))
+
+
 def _bound(n_bytes, n_ops):
     """Least time (ms) on an H100 for the bytes moved and the operations
     done, and which of the two bounds it."""
@@ -948,10 +1018,15 @@ def _time_ms(fn, warmup=2, reps=5, batch=1):
     return out
 
 
-def _host_ms(fn, warmup=2, reps=5):
-    """Host-clock times (ms) of ``reps`` synchronised calls after ``warmup``."""
+def _host_ms(fn, warmup=2, reps=5, cached=False):
+    """Host-clock times (ms) of ``reps`` synchronised calls after ``warmup``.
+    Unless ``cached``, the device-copy cache is emptied before each call
+    (outside the time), so that a public call uploads its numpy inputs as
+    it did before the cache, and its time compares with earlier runs."""
     out = []
     for i in range(warmup + reps):
+        if not cached:
+            _wrap.clear_device_cache()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
@@ -983,6 +1058,19 @@ def _in_turns(run_kern, run_twin, reps=5, batch=1):
     return _summary(kern_ms), _summary(twin_ms)
 
 
+def _steps_in_turns(steps, reps=5):
+    """Several steps timed in turns (each order reversed every other
+    round) after two warm-ups each; returns {name: summary}."""
+    for fn in steps.values():
+        _time_ms(fn, warmup=2, reps=0)
+    acc = {k: [] for k in steps}
+    names = list(steps)
+    for i in range(reps):
+        for k in names if i % 2 == 0 else names[::-1]:
+            acc[k] += _time_ms(steps[k], warmup=0, reps=1)
+    return {k: _summary(v) for k, v in acc.items()}
+
+
 def _device_us(evt):
     for name in ("self_device_time_total", "self_cuda_time_total"):
         if hasattr(evt, name):
@@ -993,10 +1081,14 @@ def _device_us(evt):
 def _profiled(step):
     """One run of ``step`` (after one unprofiled run) under
     ``torch.profiler``: (microseconds between CUDA events around it, its
-    kernels' profiler entries by device time, descending)."""
+    kernels' profiler entries by device time, descending).  The
+    device-copy cache is emptied before each run, as :func:`_host_ms` does,
+    so a public call on numpy inputs is profiled with its uploads."""
     from torch.profiler import ProfilerActivity, profile
 
+    _wrap.clear_device_cache()
     step()
+    _wrap.clear_device_cache()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -1027,14 +1119,15 @@ def _profile(label, step, ours):
 
 def _reset_counts():
     interp_kernel.launches = interp_kernel.launches_2d = interp_kernel.launches_bracketed = 0
-    sort.launches = fma_kernel.launches = 0
+    sort.launches = fma_kernel.launches = emit_kernel.launches = 0
     for k in merge.launches:
         merge.launches[k] = 0
 
 
 def _counts():
     return dict(merge.launches, interp_table_3d=interp_kernel.launches, interp_table_2d=interp_kernel.launches_2d,
-                interp_bracketed=interp_kernel.launches_bracketed, sort_rows_with_payload=sort.launches, fma=fma_kernel.launches)
+                interp_bracketed=interp_kernel.launches_bracketed, sort_rows_with_payload=sort.launches, fma=fma_kernel.launches,
+                emit=emit_kernel.launches)
 
 
 def _peak(dev, fn):
@@ -1872,6 +1965,31 @@ def main() -> int:
         _compare_sort(f"T = {T} (tile {sort.TILE})", *sort_inputs(2, T, seed=T, device=dev))
     _compare_sort("all-equal rows", torch.full((2, 54750), 2.5, device=dev), lab7[:2].contiguous())
 
+    # the emission kernel against its twin, by bit pattern (a selected -0.0
+    # is +0.0 in both): EMIT_CHECK sites of the selection data (ref and hist
+    # rows) at windows 5 and 31, f32 (stage 1 by K7) and f64 (torch.sort),
+    # finite and NaN-masked (two sites all NaN); wet-day rows of both zero
+    # signs with the twin's slots at EMIT_WET_SLOTS, where it overflows and
+    # reruns at nq slots; then the selection path's first site chunk of its
+    # 2 * SEL_SITES rows, the shape its emission runs at (timed in phase 6)
+    sel_masked = nan_masked(sel_np)
+    err["emit"] = 0.0
+    for window in (SMALL_WINDOW, HEAVY_WINDOW):
+        wplan = xp.Grouper("time.dayofyear", window=window).indexes(sth).merge_plan
+        for dtype in (torch.float32, torch.float64):
+            for tag, arrays in (("finite", sel_np), ("NaN-masked", sel_masked)):
+                x = torch.from_numpy(np.stack([a[:EMIT_CHECK] for a in arrays[:2]]).reshape(2 * EMIT_CHECK, -1)).to(dev, dtype)
+                err["emit"] = max(err["emit"], _compare_emit(f"window={window} {dtype} {tag}", emit_operands(x, wplan)))
+    wet = wet_day_rows(EMIT_WET_ROWS, sel_np[0].shape[1])
+    for dtype in (torch.float32, torch.float64):
+        wops = emit_operands(torch.from_numpy(wet).to(dev, dtype), plan)
+        assert emit_overflows(wops, EMIT_WET_SLOTS), "the wet-day rows no longer overflow the twin's slots"
+        err["emit"] = max(err["emit"], _compare_emit(f"wet days, +-0.0 ties, twin slots={EMIT_WET_SLOTS} (overflowed: rerun at nq) {dtype}", wops, EMIT_WET_SLOTS))
+    del wops
+    e_rows = max_chunk(int(plan.fast_mask.shape[0]), NQ, sel_np[0].shape[1], mode="emit")
+    eops = emit_operands(torch.cat([sref, shist])[:e_rows].contiguous(), plan)
+    err["emit"] = max(err["emit"], _compare_emit(f"selection path's site chunk ({e_rows} of {2 * SEL_SITES} rows)", eops))
+
     # 4. headline QDM through the public API
     ref, hist, sim = (torch.from_numpy(a).to(dev) for a in (ref_np, hist_np, sim_np))
     torch.cuda.synchronize()
@@ -1914,6 +2032,31 @@ def main() -> int:
           f"{_max_abs(tscen[cut].cpu(), want):.3g}", flush=True)
     del tscen
 
+    # 4c. the device-copy cache: headline QDM train on numpy arrays, then
+    # adjust twice on the same sim; the second uploads nothing
+    _wrap.clear_device_cache()
+    das = [_da(a, t, k) for a, k in ((ref_np, "ref"), (hist_np, "hist"), (sim_np, "sim"))]
+    torch.cuda.synchronize()
+    misses = [_wrap.misses]
+    cqdm = xp.QuantileDeltaMapping.train(das[0], das[1], group="time.month", nquantiles=NQ, kind="+")
+    misses.append(_wrap.misses)
+    scens = []
+    for _ in range(2):
+        scens.append(cqdm.adjust(das[2], interp="linear").data)
+        misses.append(_wrap.misses)
+    torch.cuda.synchronize()
+    uploads = np.diff(misses).tolist()
+    assert uploads == [2, 1, 0], f"cache: uploads by train, adjust, adjust {uploads}"
+    assert scens[0].is_cuda and torch.equal(scens[0], scens[1]), "cache: the second adjust's scen differs from the first"
+    warm = _summary(_host_ms(lambda: cqdm.adjust(das[2], interp="linear"), cached=True))
+    cold = _summary(_host_ms(lambda: cqdm.adjust(das[2], interp="linear")))
+    held = sum(v.numel() * v.element_size() for v in _wrap._DEV_CACHE.values())
+    print(f"[cache] QDM train then adjust twice on numpy {tuple(ref_np.shape)} f32: uploads {uploads} (train, adjust, adjust), the second scen "
+          f"equal to the first; public adjust (host clock) with the cached sim {_fmt(warm)}, with the cache cleared before each call "
+          f"{_fmt(cold)}; {len(_wrap._DEV_CACHE)} cached copies, {held / 2**30:.3f} GiB [{smi}]", flush=True)
+    del cqdm, scens, das
+    _wrap.clear_device_cache()
+
     # 5. heavy windowed EQM through the public API, then the window-5 path
     hcut = slice(0, HEAVY_CHECK)
     small = [torch.from_numpy(a[hcut]) for a in (href_np, hhist_np, hsim_np)]
@@ -1953,9 +2096,9 @@ def main() -> int:
         del hscen
 
     # 5b. the selection engine through the public call, on numpy inputs
-    sel_counts = {}
+    sel_counts, sel_scen = {}, {}
     with xp.set_options(selection_on_tpu=True):
-        for tag, arrays, ncheck in (("finite", sel_np, SEL_CHECK), ("NaN-masked", nan_masked(sel_np), SEL_NAN_CHECK)):
+        for tag, arrays, ncheck in (("finite", sel_np, SEL_CHECK), ("NaN-masked", sel_masked, SEL_NAN_CHECK)):
             torch.cuda.synchronize()
             _reset_counts()
             t0 = time.perf_counter()
@@ -1981,8 +2124,33 @@ def main() -> int:
                   f"NaN exactly where the data is missing, launches {counts}, {first_s:.3f} s first call; first {ncheck} sites: "
                   f"{n_cpu} values differ from the CPU port (max abs diff {_max_abs(got, cpu):.3g}), {n_oracle} from the re-sort "
                   f"oracle (max abs diff {_max_abs(got, oracle):.3g})", flush=True)
-            del sscen
+            sel_scen[tag] = sscen
+    # the same calls on the emit engine: the scen of the gather engine, K7,
+    # the emission kernel and K1, no merge kernel
+    emit_counts = {}
+    with xp.set_options(selection_on_tpu=True, selection_mode="emit"):
+        for tag, arrays in (("finite", sel_np), ("NaN-masked", sel_masked)):
+            torch.cuda.synchronize()
+            _reset_counts()
+            t0 = time.perf_counter()
+            escen = run_windowed_path(*arrays, sth)
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+            counts = emit_counts[tag] = _counts()
+            r_np, h_np, s_np = arrays
+            want_nan = np.isnan(s_np) | np.isnan(r_np).all(-1)[:, None] | np.isnan(h_np).all(-1)[:, None]
+            assert escen.is_cuda and torch.equal(torch.isnan(escen).cpu(), torch.from_numpy(want_nan)), f"emit {tag}: NaN where the data has none"
+            assert all(counts[k] >= 1 for k in ("sort_rows_with_payload", "emit", "interp_table_3d")), f"emit {tag}: launches {counts}"
+            assert all(counts[k] == 0 for k in merge.launches), f"emit {tag}: a merge kernel ran: {counts}"
+            n_diff = int((~_nan_equal(escen, sel_scen[tag])).sum())
+            assert n_diff == 0, f"emit {tag}: {n_diff} values differ from the gather engine's scen"
+            print(f"[selection] EQM dayofyear window={HEAVY_WINDOW} ({tag}) train+adjust on numpy {tuple(escen.shape)} f32 -> {escen.device}, "
+                  f"selection_mode='emit': NaN exactly where the data is missing, launches {counts}, {first_s:.3f} s first call; "
+                  f"scen == the gather engine's on all {escen.numel()} values [{smi}]", flush=True)
+            del escen
+    del sel_scen
 
+    _wrap.clear_device_cache()   # no cached copies of the phases before in what is held
     # 5c. the multivariate schemes through the public calls, on numpy inputs
     mb_counts, mb_train_counts = {}, {}
     for tag, cfg in (("MBCn-a", MBCN_A), ("MBCn-b", MBCN_B)):
@@ -2061,6 +2229,7 @@ def main() -> int:
               f"first {CHECK_SITES} sites vs the CPU port max abs diff {_max_abs(got[cut].cpu(), want):.3g}", flush=True)
         del got, trained
 
+    _wrap.clear_device_cache()   # no cached copies of the phases before in what is held
     # 5d. DQM through the public calls on numpy inputs: BASELINE config 2 (pr,
     # multiplicative, monthly, dry-day preprocessing, LOESS on the FFT core),
     # then dayofyear + 31 on the heavy data (the merge engine, a polynomial
@@ -2130,30 +2299,35 @@ def main() -> int:
           + ", ".join(f"{k} {v:.3g}" for k, v in lo_err.items()), flush=True)
     del lo_card, lo_cpu
 
+    _wrap.clear_device_cache()   # no cached copies of the phases before in what is held
     # 5e. the second-order and multivariate transforms through the public
     # calls: ExtremeValues on config 2's DQM scen, PrincipalComponents at 512
     # sites, OTC / dOTC at one site; each held against the CPU port and timed
     ours = ("interp_rows_kernel", "interp_bracketed_kernel", "fma_strided_kernel", "sort_rows_warp_kernel", "sort_rows_alt_kernel", "build_levels_kernel", "fold_windows_kernel",
-            "radix_tile_sort_kernel", "merge_pass_kernel")
+            "radix_tile_sort_kernel", "merge_pass_kernel", "emit_kernel")
     second_counts = second_order_phase(dev, ours, tp, (pref_np, phist_np, psim_np), dqm_runs["config 2"]["out"]["scen"].data)
     print(f"[second-order] launches by path (kernels launched at least once): {({p: {k: n for k, n in c.items() if n} for p, c in second_counts.items()})}", flush=True)
 
+    _wrap.clear_device_cache()   # no cached copies of the phases before in what is held
     # 5f. BASELINE config 5: QDM adjust plus the validation suite on a
     # 2048-site tile, in blocks of 512 sites, held against the CPU port
     c5_counts = config5_phase(dev, ours)
     print(f"[config 5] QDM kernels' launches by block: {c5_counts}", flush=True)
 
+    _wrap.clear_device_cache()   # no cached copies of the phases before in what is held
     # 5g. cubic interpolation, the moving-window adjustment, MBCn with pr's
     # preprocessing, the additive space, the spectral filter and the public
     # lookup, at full width, each held against the CPU port
     a7_counts = a7_phase(dev, smi)
     print(f"[a7] launches by item (kernels launched at least once): {({p: {k: n for k, n in c.items() if n} if 'train' not in c else c for p, c in a7_counts.items()})}", flush=True)
 
+    _wrap.clear_device_cache()   # no cached copies of the phases before in what is held
     # 5h. the shell: the CLI's selftest, nbutils, base.map_groups and a
     # profiling trace of the heavy windowed EQM, each held against the CPU port
     shell_counts = shell_phase(smi, (th, href, hhist, hsim))
     print(f"[shell] the trace's launches (kernels launched at least once): {({k: n for k, n in shell_counts.items() if n})}", flush=True)
 
+    _wrap.clear_device_cache()   # no cached copies of the phases before in what is held
     # 6. times
     q = torch.as_tensor(equally_spaced_nodes(NQ), dtype=torch.float32, device=dev)
     idx = [torch.as_tensor(a, device=dev) for a in (gi.gather_idx, gi.group_idx, gi.scatter_slot)]
@@ -2205,10 +2379,20 @@ def main() -> int:
     def merge_step():
         return eqm_train_adjust_windowed(sref, shist, ssim, hgi.merge_plan, q, hbrackets, kind="+", interp="linear", extrapolation="constant", assume_finite=True)
 
-    sel, mrg = _in_turns(sel_step, merge_step)
-    for label, summ in (("selection", sel), ("merge", mrg)):
+    def emit_step():
+        with xp.set_options(selection_on_tpu=True, selection_mode="emit"):
+            return eqm_train_adjust_windowed(sref, shist, ssim, hgi.merge_plan, q, hbrackets, kind="+", interp="linear", extrapolation="constant")
+
+    engines = _steps_in_turns({"selection (gather)": sel_step, "selection (emit)": emit_step, "merge": merge_step})
+    for label, summ in engines.items():
         print(f"[time] fused eqm_train_adjust_windowed doy+{HEAVY_WINDOW} {SEL_SITES} sites x {HEAVY_YEARS} yr, {label} engine: "
-              f"{SEL_SITES * HEAVY_YEARS / (summ['median_ms'] / 1e3):,.0f} gridpoint-years/s ({_fmt(summ)})", flush=True)
+              f"{SEL_SITES * HEAVY_YEARS / (summ['median_ms'] / 1e3):,.0f} gridpoint-years/s ({_fmt(summ)}) [{smi}]", flush=True)
+    torch.cuda.synchronize()
+    emit_base = torch.cuda.memory_allocated(dev)
+    _, emit_peak = _peak(dev, emit_step)
+    print(f"[memory] emit fused step: peak {emit_peak / 2**30:.3f} GiB above the {emit_base / 2**30:.3f} GiB held before it "
+          f"(limit {EMIT_PEAK / 2**30:.0f} GiB) [{smi}]", flush=True)
+    assert emit_peak < EMIT_PEAK, f"the emit step's peak {emit_peak / 2**30:.3f} GiB above the held exceeds {EMIT_PEAK / 2**30:.0f} GiB"
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     base = torch.cuda.memory_allocated(dev)
@@ -2322,6 +2506,8 @@ def main() -> int:
     # the heavy extraction's lerp, on the operands phase 3 held to the twin
     times["fma"] = _in_turns(lambda: fma_kernel.fma(fa, fb, fc), lambda: fma_kernel.fma_reference(fa, fb, fc), **kb)
     times["K7"] = _in_turns(lambda: sort.sort_rows_with_payload(key7, lab7), lambda: sort.sort_rows_with_payload_reference(key7, lab7), **kb)
+    # the emission at the selection path's site chunk; its twin takes seconds, so 3 samples
+    times["emit"] = _in_turns(lambda: emit_kernel.emit(*eops), lambda: emit_kernel.emit_reference(*eops), reps=3, **kb)
     times["K3"] = _in_turns(lambda: merge.sort_rows_alternating(slab), lambda: merge.sort_rows_alternating_reference(slab), **kb)
     times["K5"] = _in_turns(lambda: merge.build_levels(ordered, L), lambda: merge.build_levels_reference(ordered, L), **kb)
     width = HEAVY_WINDOW * ymax
@@ -2341,7 +2527,8 @@ def main() -> int:
     times["K1 nearest (long rows)"] = _in_turns(lambda: interp_kernel.interp_table_3d(v, xs, ys, nv, "nearest"),
                                                 lambda: interp_kernel.interp_table_3d_reference(v, xs, ys, nv, "nearest"), **kb)
     shapes = {"K1 nearest (long rows)": f"{tuple(v.shape)} (config 2's monthly partition)", "K1 nearest": tuple(vh.shape), "K2 nearest": f"{tuple(rank_b[0].shape)}, nq {MBCN_B['nq']} (MBCn-b's ranks)", "K1": tuple(vh.shape), "K2": tuple(v2.shape), "bracketed": tuple(bargs[0].shape), "fma": f"{tuple(fa.shape)} * {tuple(fb.shape)}", "K3": tuple(slab.shape), "K5": tuple(ordered.shape), "K6": tuple(ordered.shape),
-              "K4": tuple(ordered5.shape), "K7": tuple(key7.shape)}
+              "K4": tuple(ordered5.shape), "K7": tuple(key7.shape),
+              "emit": f"{tuple(eops[0].shape)}, {int(plan.fast_mask.shape[0])} groups, nq {NQ} (one site chunk of the selection path)"}
     for k, (kern, twin) in times.items():
         print(f"[time] {k} {KERNELS[k]['name']} {shapes[k]}: kernel {_fmt(kern)}; plain twin {_fmt(twin)}", flush=True)
     # the lookup on the partition route's long rows (the headline's shape
@@ -2409,12 +2596,19 @@ def main() -> int:
         "K4": _bound((ordered5.numel() + merged5.numel()) * f4, merged5.numel() * log2(SMALL_WINDOW)),
         "K7": _bound(key7.numel() * 8 + key7.shape[0] * sort.padded_length(key7.shape[1]) * 8,
                      key7.shape[0] * sort.padded_length(key7.shape[1]) * log2(sort.padded_length(key7.shape[1]))),
+        # every value and label read once, the counts and ranks read, the
+        # picks written; one operation a (member, group) pair, which is
+        # what the function needs: an element of label (a, len) is in its
+        # len groups alone, so the pairs are the valid counts n summed
+        "emit": _bound(sum(a.numel() * a.element_size() for a in eops[:6]) + (2 * eops[3].numel() + eops[5].numel()) * f4,
+                       int(eops[5].sum())),
     }
     del folded, merged5
 
     _profile("one fused QDM step", qdm_step, ours)
     _profile(f"one fused windowed EQM step (doy+{HEAVY_WINDOW})", heavy_step, ours)
     _profile(f"one fused selection EQM step (doy+{HEAVY_WINDOW}, {SEL_SITES} sites)", sel_step, ours)
+    _profile(f"one fused emit EQM step (doy+{HEAVY_WINDOW}, {SEL_SITES} sites)", emit_step, ours)
 
     launches = {
         "K1": paths[HEAVY_WINDOW]["interp_table_3d"],
@@ -2429,11 +2623,12 @@ def main() -> int:
         "K1 nearest": npdf_counts["interp_table_3d"],
         "K2 nearest": mb_counts["MBCn-b"]["interp_table_2d"],
         "K1 nearest (long rows)": dqm_runs["config 2"]["counts"]["interp_table_3d"],
+        "emit": emit_counts["finite"]["emit"],
     }
     rows = [
         dict(KERNELS[k], launches=launches[k], max_abs_err=err[k], ms=times[k][0]["median_ms"], plain_ms=times[k][1]["median_ms"],
              bound_ms=bounds[k][0], bound_by=bounds[k][1], library_ms=library_ms.get(k))
-        for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "bracketed", "fma", "K1 nearest", "K2 nearest", "K1 nearest (long rows)")
+        for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "bracketed", "fma", "K1 nearest", "K2 nearest", "K1 nearest (long rows)", "emit")
     ]
     print(smi, flush=True)
     print(json.dumps({"kernels": rows}))

@@ -1,5 +1,6 @@
 """The port on an NVIDIA GPU: the CUDA kernels against their plain twins,
-the public QDM and windowed EQM paths (merge and selection engines) and
+the public QDM and windowed EQM paths (merge and selection engines, the
+selection's gather and emit modes), the device-copy cache and
 the diagnostics (the GEV fit, the incomplete beta, run lengths, the
 inter-site Spearman product, every property's device) on the card against
 the port's CPU path.  Numpy data runs on the card by
@@ -26,6 +27,8 @@ from chip_smoke import (
     config2_train,
     dqm_doy_adjust,
     dqm_doy_train,
+    emit_operands,
+    emit_overflows,
     example_problem,
     fma_inputs,
     heavy_problem,
@@ -38,10 +41,11 @@ from chip_smoke import (
     run_main_path,
     run_windowed_path,
     sort_inputs,
+    wet_day_rows,
 )
 from xsdba_tpu_torch.ops import interp, merge, selquant, sort
 from xsdba_tpu_torch.ops.correction import equally_spaced_nodes
-from xsdba_tpu_torch.ops.cuda import fma_kernel
+from xsdba_tpu_torch.ops.cuda import emit_kernel, fma_kernel
 from xsdba_tpu_torch.ops.cuda import interp_kernel as k
 from xsdba_tpu_torch.ops.cuda.fma_kernel import fma
 from xsdba_tpu_torch.ops.loess import loess_smoothing
@@ -1040,3 +1044,98 @@ def test_selftest_on_the_card(cuda, capsys):
     with xp.set_options(device="cpu"):
         bias_cpu, _ = cli._selftest_run()
     assert device.type == "cuda" and abs(bias - bias_cpu) <= 1e-6
+
+
+# ------------------------------------------------------- emission, device cache
+
+
+def _bits(a):
+    return a.view(torch.int32 if a.dtype == torch.float32 else torch.int64)
+
+
+def _same_picks(got, want):
+    """The emission's (left, right, max) against the twin's, by bit pattern."""
+    return all(bool((_bits(g) == _bits(w)).all()) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("window", [5, 31])
+@pytest.mark.parametrize("masked", [False, True])
+def test_emit_kernel_matches_twin_bitwise(cuda, dtype, window, masked):
+    t, data = heavy_problem(4, 6)
+    data = nan_masked(data) if masked else data
+    plan = xp.Grouper("time.dayofyear", window=window).indexes(t).merge_plan
+    x = torch.from_numpy(np.stack(data[:2]).reshape(8, -1)).to(cuda, dtype)
+    ops = emit_operands(x, plan)
+    before = emit_kernel.launches
+    got = emit_kernel.emit(*ops)
+    torch.cuda.synchronize()
+    assert emit_kernel.launches == before + 1 and got[0].is_cuda
+    assert _same_picks(got, emit_kernel.emit_reference(*ops))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_emit_kernel_on_signed_zero_ties(cuda, dtype):
+    """Wet days of both zero signs: the twin's 2 slots overflow and it
+    reruns at nq; the kernel needs no slots; every selected zero is +0.0."""
+    t, _ = heavy_problem(1, 6)
+    plan = xp.Grouper("time.dayofyear", window=31).indexes(t).merge_plan
+    ops = emit_operands(torch.from_numpy(wet_day_rows(4, len(t))).to(cuda, dtype), plan)
+    assert emit_overflows(ops, 2)
+    got = emit_kernel.emit(*ops, slots=2)
+    assert _same_picks(got, emit_kernel.emit_reference(*ops, slots=2))
+    assert not bool(torch.signbit(got[0][got[0] == 0]).any())
+
+
+@pytest.mark.parametrize("Wb,nb_chunk", [(8, 4), (16, 1), (64, 3)])
+def test_emit_engine_on_cuda_equals_gather(cuda, Wb, nb_chunk):
+    t, data = heavy_problem(6, 5)
+    x = torch.from_numpy(np.stack(nan_masked(data)[:2]).reshape(12, -1)).to(cuda)
+    plan = xp.Grouper("time.dayofyear", window=31).indexes(t).merge_plan
+    q = equally_spaced_nodes(50).astype(np.float32)
+    kw = dict(Wb=Wb, nb_chunk=nb_chunk, slots=2)
+    got = selquant.selection_windowed_quantile(x, plan, q, mode="emit", **kw)
+    assert got.is_cuda
+    assert _nan_equal(got, selquant.selection_windowed_quantile(x, plan, q, mode="gather", **kw))
+    assert _nan_equal(got.cpu(), selquant.selection_windowed_quantile(x.cpu(), plan, q, mode="emit", **kw))
+
+
+def test_emit_wrapper_rejects_operands_on_two_devices(cuda):
+    t, data = heavy_problem(2, 4)
+    plan = xp.Grouper("time.dayofyear", window=5).indexes(t).merge_plan
+    ops = list(emit_operands(torch.from_numpy(data[0]).to(cuda), plan))
+    ops[3] = ops[3].cpu()
+    with pytest.raises(ValueError, match="one device"):
+        emit_kernel.emit(*ops)
+
+
+def test_public_emit_eqm_on_numpy_runs_on_the_card(cuda):
+    """selection_mode="emit": K7, the emission kernel and K1 and no merge
+    kernel; scen equal to the gather engine's on the card."""
+    t, data = heavy_problem(6, 5)
+    data = nan_masked(data)
+    sort.launches = emit_kernel.launches = 0
+    for key in merge.launches:
+        merge.launches[key] = 0
+    with xp.set_options(selection_on_tpu=True, selection_mode="emit"):
+        got = run_windowed_path(*data, t)
+    torch.cuda.synchronize()
+    assert got.is_cuda and sort.launches >= 1 and emit_kernel.launches >= 1 and not any(merge.launches.values())
+    with xp.set_options(selection_on_tpu=True):
+        assert _nan_equal(got, run_windowed_path(*data, t))
+
+
+def test_second_adjust_uploads_nothing(cuda):
+    from xsdba_tpu_torch.models import _wrap
+
+    t, (ref, hist, sim) = example_problem(4, 3)
+    mk = lambda x: xp.DataArray(x, ("site", "time"), {"time": t}, {"units": "K"})  # noqa: E731
+    _wrap.clear_device_cache()
+    qdm = xp.QuantileDeltaMapping.train(mk(ref), mk(hist), group="time.month", nquantiles=20)
+    s_da = mk(sim)
+    first = qdm.adjust(s_da, interp="linear").data
+    before = _wrap.misses
+    second = qdm.adjust(s_da, interp="linear").data
+    assert _wrap.misses == before and first.is_cuda and torch.equal(first, second)
+    assert all(v.is_cuda for v in _wrap._DEV_CACHE.values())
+    _wrap.clear_device_cache()

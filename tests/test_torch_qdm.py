@@ -283,19 +283,6 @@ def test_preprocessing_matches_reference(monkeypatch, e2e, cls, train_kw):
     np.testing.assert_array_equal(_np(out[xp][1]), _np(out[xt][1]))
 
 
-@pytest.mark.parametrize("train_kw,adjust_kw,options,item", [
-    (dict(group=("time.dayofyear", 5)), dict(interp="linear"), dict(selection_mode="emit"), "A4"),
-])
-def test_unported_options_raise(e2e_port, train_kw, adjust_kw, options, item):
-    """What the port still lacks raises, naming its ROADMAP item (cubic,
-    which raised here before, is ported: ``tests/test_torch_cubic.py``)."""
-    d = e2e_port
-    kw = dict(train_kw, group=xp.Grouper(*train_kw["group"]))
-    with xp.set_options(**options), pytest.raises(NotImplementedError, match=item):
-        obj = xp.EmpiricalQuantileMapping.train(d["ref"], d["hist"], nquantiles=10, **kw)
-        obj.adjust(d["sim"], **adjust_kw)
-
-
 def test_chip_smoke_main_path_on_cpu():
     """``chip_smoke.py``'s main-path phase, on the CPU at a small size: the
     port's public QDM path on its data recipe against the reference's."""

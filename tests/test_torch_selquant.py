@@ -144,13 +144,6 @@ def test_block_sizes_change_no_result(Wb, nb_chunk, g_chunk):
     _equal(got, engine)
 
 
-def test_emit_mode_raises():
-    _, gp = _indexes(5)
-    x, q, _, _ = _reference(np.float32, 5)
-    with xp.set_options(selection_mode="emit"), pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        ps.selection_windowed_quantile(torch.from_numpy(x), gp.merge_plan, q)
-
-
 def test_engine_resolution():
     """The backend is the data's device: the CPU selects by default, CUDA
     only under ``selection_on_tpu``; "auto" resolves to the gather mode and

@@ -42,6 +42,7 @@ ALLOWED = {
     ("parallel", None, None): "the multi-device layer waits for a machine with more than one card (ROADMAP A11)",
     ("parallel.mesh", None, None): "the multi-device layer waits for a machine with more than one card (ROADMAP A11)",
     ("ops.cuda", None, None): "the port's kernel wrappers and their build (the JAX package's are ops/pallas)",
+    ("ops.cuda.emit_kernel", None, None): "the selection engine's dense emission as a CUDA kernel and its plain twin (plain JAX in the reference)",
     ("ops.cuda.fma_kernel", None, None): "x * y + z rounded once: XLA contracts it in the reference's compiled programs (C9)",
     ("ops.cuda.interp_kernel", None, None): "the wrappers of csrc/interp_kernel.cu (K1, K2, the bracketed lookup)",
     ("ops.merge", None, None): "the wrappers of csrc/merge_kernel.cu (K3-K6) and their plain twins",
@@ -79,9 +80,6 @@ ALLOWED = {
     ("ops.rotation", "rand_rot_matrix", "dtype"): "jnp.float32 against torch.float32: each package's float32",
     ("ops.selquant", "selection_ok", "device"): "the port decides per device (CPU selects by default, CUDA on request)",
     ("ops.selquant", "default_sort_impl", "device"): "the stage-1 sort's default depends on the device (K7 on CUDA)",
-    ("ops.selquant", "selection_windowed_quantile", "slots"): "hit slots of the reference's emit engine (ROADMAP A4)",
-    ("ops.selquant", "selection_windowed_quantile_core", "slots"): "hit slots of the reference's emit engine (ROADMAP A4)",
-    ("ops.selquant", "selection_windowed_quantile_core", "mode"): "'gather' until the emit engine is ported (ROADMAP A4)",
 }
 
 

@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import weakref
+import zlib
 from dataclasses import dataclass
 
 import numpy as np
@@ -10,9 +12,20 @@ import torch
 from ..ops.interp import bracket_steps
 from ..utils.container import DataArray
 from ..utils.grouper import GroupIndexes
-from ..utils.tensor import input_tensor
+from ..utils.tensor import as_tensor, default_device, input_tensor
 
-__all__ = ["Brackets", "batch_of", "device_brackets", "fold_add_dims", "grouped_var", "scen_like", "to_compute", "training_tensors"]
+__all__ = [
+    "Brackets",
+    "batch_of",
+    "clear_device_cache",
+    "device_brackets",
+    "fold_add_dims",
+    "grouped_var",
+    "scen_like",
+    "to_compute",
+    "to_device_cached",
+    "training_tensors",
+]
 
 
 @dataclass
@@ -62,13 +75,82 @@ def device_brackets(gi: GroupIndexes, method: str = "linear", device=None) -> Br
     )
 
 
+_DEV_CACHE: dict = {}
+_DEV_CACHE_MAX = 32
+#: uploads :func:`to_device_cached` made because no cached copy matched
+misses = 0
+
+
+def _fingerprint(a: np.ndarray) -> int:
+    """Cheap content fingerprint (~1k sampled elements), the reference's:
+    realistic in-place mutations (whole-array or blockwise updates) change
+    it and so invalidate the buffer-identity cache; a surgical
+    single-element edit between the sample points can still escape, so
+    callers must not mutate inputs in place."""
+    flat = np.ravel(a)
+    if flat.size == 0:
+        return 0
+    step = max(1, flat.size // 1024)
+    sample = np.concatenate([flat[::step][:1025], flat[-8:]])
+    return zlib.crc32(sample.tobytes())
+
+
+def to_device_cached(a, device=None) -> torch.Tensor:
+    """Copy of a host array on ``device`` (the ``device`` option's by
+    default), cached by buffer identity, fingerprint and device.
+
+    Public calls on the same numpy-backed DataArrays (train then adjust,
+    parameter sweeps) would otherwise upload identical inputs on every
+    call.  The key is the reference's (the owning buffer's id, the data
+    pointer, shape, strides, dtype and :func:`_fingerprint`, so views hit
+    too and in-place mutation between calls misses) plus the device, since
+    the ``device`` option may change between calls.  An entry dies with its
+    owning buffer (``weakref.finalize``), the oldest goes past
+    ``_DEV_CACHE_MAX`` entries, and an owner that takes no weak reference
+    (a ``bytes`` or ``mmap`` base) is not cached.  The copy is the cache's
+    own on every device, the CPU too, never a view of the caller's buffer;
+    the same tensor is handed to every call that hits, so no caller may
+    write into it.  A tensor is not cached: it keeps its device unless
+    ``device`` is given, and then goes there.  Other data is converted
+    uncached."""
+    global misses
+    if isinstance(a, torch.Tensor):
+        return a if device is None else a.to(device)
+    dev = torch.device(device) if device is not None else default_device()
+    if not isinstance(a, np.ndarray):
+        return as_tensor(a, device=dev)
+    owner = a.base if a.base is not None else a
+    key = (id(owner), a.__array_interface__["data"][0], a.shape, a.strides, a.dtype.str, _fingerprint(a), str(dev))
+    hit = _DEV_CACHE.get(key)
+    if hit is not None:
+        return hit
+    misses += 1
+    out = torch.tensor(a, device=dev)  # a copy, also on the CPU
+    try:
+        weakref.finalize(owner, _DEV_CACHE.pop, key, None)
+    except TypeError:
+        # owner not weakref-able: the entry could never be invalidated and
+        # its (id, ptr, ...) key is recyclable after GC, so it is not cached
+        return out
+    while len(_DEV_CACHE) >= _DEV_CACHE_MAX:
+        _DEV_CACHE.pop(next(iter(_DEV_CACHE)))
+    _DEV_CACHE[key] = out
+    return out
+
+
+def clear_device_cache() -> None:
+    """Drop every cached device copy (:func:`to_device_cached`)."""
+    _DEV_CACHE.clear()
+
+
 def to_compute(da: DataArray):
     """DataArray -> (tensor [..., T], batch dims, batch coords).  A tensor
-    keeps its device; numpy data goes to the ``device`` option's device."""
+    keeps its device; numpy data goes to the ``device`` option's device
+    through the device-copy cache (:func:`to_device_cached`)."""
     da = da.move_dim_last("time")
     batch_dims = da.dims[:-1]
     batch_coords = {d: da.coords[d] for d in batch_dims if d in da.coords}
-    return input_tensor(da.data), batch_dims, batch_coords
+    return to_device_cached(da.data), batch_dims, batch_coords
 
 
 def fold_add_dims(group, *das: DataArray):

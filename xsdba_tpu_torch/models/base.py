@@ -110,7 +110,13 @@ class BaseAdjustment(ParametrizableWithDataset):
 
 class TrainAdjust(BaseAdjustment):
     """Two-step scheme: ``cls.train(ref, hist, **kw)`` then ``obj.adjust(sim)``
-    (reference adjustment.py:209-332)."""
+    (reference adjustment.py:209-332).
+
+    Numpy inputs go to the ``device`` option's device through the
+    device-copy cache (``models/_wrap.py:to_device_cached``), as in the
+    reference: a later call on the same, unchanged array reuses its copy.
+    Do not write into an input between calls: an edit that the cache's
+    fingerprint (~1k sampled values) misses reuses the stale copy."""
 
     _allow_diff_calendars = True
 
@@ -165,7 +171,13 @@ class TrainAdjust(BaseAdjustment):
 
 class Adjust(BaseAdjustment):
     """One-shot scheme: ``cls.adjust(ref, hist, sim, **kw)``
-    (reference adjustment.py:335-411)."""
+    (reference adjustment.py:335-411).
+
+    Numpy inputs go to the ``device`` option's device through the
+    device-copy cache (``models/_wrap.py:to_device_cached``), as in the
+    reference: a later call on the same, unchanged array reuses its copy.
+    Do not write into an input between calls: an edit that the cache's
+    fingerprint (~1k sampled values) misses reuses the stale copy."""
 
     @classmethod
     def adjust(cls, ref: DataArray, hist: DataArray, sim: DataArray | None = None, **kwargs):

@@ -36,9 +36,10 @@ from ..processing import _adapt_freq_grouped, _jitter_core, _reordering_core
 from ..utils.container import DataArray, Dataset
 from ..utils.grouper import Grouper
 from ..utils.options import set_options
-from ..utils.tensor import as_tensor, input_tensor, nanstd, numpy_dtype
+from ..utils.tensor import as_tensor, nanstd, numpy_dtype
 from ..utils.units import convert_units_to
 from ._npdft import _escore_stride, _rotate, npdf_transform_core, npdft_adjust_core, npdft_train_core, standardize_lastaxis
+from ._wrap import to_device_cached
 from .base import Adjust, TrainAdjust
 from .eqm import EmpiricalQuantileMapping, QuantileDeltaMapping
 
@@ -131,8 +132,8 @@ class MBCn(TrainAdjust):
         # the cores run in [V, ..., T] layout — normalize any input dim order
         ref = _to_vtime_layout(ref, pts_dim)
         hist = _to_vtime_layout(hist, pts_dim)
-        refa = input_tensor(ref.data)                           # [V, ..., T]
-        hista = as_tensor(input_tensor(hist.data), device=refa.device)
+        refa = to_device_cached(ref.data)                       # [V, ..., T]
+        hista = to_device_cached(hist.data, refa.device)
         V = refa.shape[0]
         rot = _rotations(rot_matrices, V, n_iter, refa)
         quantiles = quantiles.astype(numpy_dtype(refa.dtype))
@@ -229,10 +230,10 @@ class MBCn(TrainAdjust):
         gi_sim = group.indexes(sim.time)
 
         var_attrs = sim.attrs.get("_variable_attrs", {})
-        sima = input_tensor(sim.data)                            # [V, ..., T]
+        sima = to_device_cached(sim.data)                        # [V, ..., T]
         dev = sima.device
-        refa = as_tensor(input_tensor(ref.data), device=dev)
-        hista = as_tensor(input_tensor(hist.data), device=dev)
+        refa = to_device_cached(ref.data, dev)
+        hista = to_device_cached(hist.data, dev)
         af_q_all = as_tensor(self.ds["af_q"].data, device=dev)
         rots = as_tensor(self.ds["rot_matrices"].data, dtype=af_q_all.dtype, device=dev)
         quantiles = as_tensor(np.asarray(self.ds["af_q"].coords["quantiles"]), dtype=af_q_all.dtype, device=dev)
@@ -374,9 +375,9 @@ class NpdfTransform(Adjust):
         hist = _to_vtime_layout(hist, pts_dim)
         sim = _to_vtime_layout(sim, pts_dim)
 
-        refa = torch.movedim(input_tensor(ref.data), 0, -2)      # [..., V, T]
-        hista = torch.movedim(as_tensor(input_tensor(hist.data), device=refa.device), 0, -2)
-        sima = torch.movedim(as_tensor(input_tensor(sim.data), device=refa.device), 0, -2)
+        refa = torch.movedim(to_device_cached(ref.data), 0, -2)  # [..., V, T]
+        hista = torch.movedim(to_device_cached(hist.data, refa.device), 0, -2)
+        sima = torch.movedim(to_device_cached(sim.data, refa.device), 0, -2)
         rot = _rotations(rot_matrices, refa.shape[-2], n_iter, refa)
 
         if base_name is None:
@@ -443,7 +444,7 @@ def _npdf_loop_general(base, base_kws, adj_kws, group, quantiles, ref, hist, sim
         return DataArray(torch.movedim(a, -2, 0), like.dims, dict(like.coords), dict(like.attrs), like.name)
 
     def unwrap(da):
-        return torch.movedim(input_tensor(da.move_dim_last("time").data), 0, -2)
+        return torch.movedim(to_device_cached(da.move_dim_last("time").data), 0, -2)
 
     stride = _escore_stride(refa.shape[-1], n_escore)
     mu = torch.nanmean(refa, dim=-1, keepdim=True)

@@ -18,20 +18,23 @@ merge engine builds, and this module finds them by counting:
    array (+1 at an element's first group, -1 past its last, cyclic) summed
    over the groups, and a cumulative sum over blocks gives the exact valid
    count, and so the type-7 ranks, per (site, group);
-3. each needed rank finds its block by ``torch.searchsorted`` over the
-   block counts, the block's values and labels are gathered, and the rank's
-   element is picked by a member test and a cumulative count inside the
-   block.
+3. the needed ranks' values, by one of two engines (``mode``):
+   ``"gather"``: each rank finds its block by ``torch.searchsorted`` over
+   the block counts, the block's values and labels are gathered, and the
+   rank's element is picked by a member test and a cumulative count inside
+   the block; ``"emit"``: the reference's dense emission, the sorted row
+   re-scanned chunk by chunk, each element testing its member rank against
+   the ranks its chunk holds (``ops/cuda/emit_kernel.py``: the hand-written
+   kernel ``csrc/emit_kernel.cu`` on a CUDA tensor, which stores no hit
+   tensor, and the reference's form under an element budget, its twin, on
+   the CPU).
 
 The counts are exact for NaN data too (NaNs sort last and are no members),
-so one program covers finite and NaN data with no host synchronisation.
-The selected elements are the floats the sorted window would hold, and the
-rank and lerp arithmetic mirrors the reference op for op, so the result
-equals the reference's engine and its re-sort oracle bit for bit on the CPU.
-
-The reference's emit mode (``selection_mode="emit"``, dense emission over
-[B, E, G, S] hit tests, the TPU form) is not ported: it raises
-``NotImplementedError`` (ROADMAP A4).
+so one program covers finite and NaN data.  The selected elements are the
+floats the sorted window would hold (a selected -0.0 as +0.0, as the
+reference's sums give it), and the rank and lerp arithmetic mirrors the
+reference op for op, so both engines equal each other, the reference's
+engines and its re-sort oracle bit for bit on the CPU.
 """
 
 from __future__ import annotations
@@ -41,6 +44,8 @@ import weakref
 import numpy as np
 import torch
 
+from . import sort
+from .cuda import emit_kernel
 from .quantile import _lerp, _virtual_index
 
 __all__ = [
@@ -127,8 +132,6 @@ def _sort_stage(xb, lab, sort_impl: str):
         return svals, torch.gather(lab, -1, order)
     if sort_impl not in ("pallas", "xla"):
         raise ValueError(f"Unknown selection sort {sort_impl!r} (lax, pallas, xla).")
-    from . import sort
-
     # the row sort cannot carry NaN keys: (+inf, label 0) keeps the element
     # out of every count, exactly as a NaN sorted last would be
     bad = torch.isnan(xb)
@@ -159,42 +162,17 @@ def _block_counts(svals, slab, G: int, nb: int, Wb: int):
     return torch.cumsum(diff.reshape(B, nb, G + 1), dim=-1, dtype=torch.int32)[..., :G]
 
 
-def selection_windowed_quantile_core(
-    x,
-    labels,
-    quantiles,
-    *,
-    G: int,
-    Wb: int = 64,
-    nb_chunk: int = 128,
-    g_chunk: int = 64,
-    mode: str = "gather",
-    sort_impl: str = "lax",
-    alpha: float = 1.0,
-    beta: float = 1.0,
-):
-    """``x`` [..., T] values, ``labels`` [T] packed ``start*_PACK + length``
-    int32 (on x's device), ``quantiles`` [nq].  Returns [..., G, nq].
-
-    ``mode`` is the extraction engine: ``"gather"`` (per-query block gather
-    and in-block pick, the only one ported; ``"emit"`` raises).
-    ``sort_impl`` picks the stage-1 sort (module doc).  ``Wb`` is the
-    sorted-order block width, ``nb_chunk`` the block multiple the sorted row
-    is padded to and ``g_chunk`` the groups each stage-3 chunk gathers for:
-    performance knobs, free of semantics.
-    """
-    if mode == "emit":
-        raise NotImplementedError(
-            "selection_mode='emit' (the dense emission) is not ported to xsdba_tpu_torch (ROADMAP A4); use 'gather' or 'auto'."
-        )
-    if mode != "gather":
-        raise ValueError(f"Unknown selection mode {mode!r} (emit, gather).")
-    lead = x.shape[:-1]
+def _counted(x, labels, quantiles, G, Wb, nb_chunk, sort_impl, alpha, beta):
+    """Stages 1 and 2a and the target ranks, shared by both engines: the
+    sorted rows and labels [B, Tp] (padded with (NaN, 0) to whole chunks of
+    ``nb_chunk`` blocks), the inclusive block counts C [B, nb, G], the
+    valid counts n [B, G], and per (row, group, sorted quantile) the lerp
+    weight and the left and right ranks; then the permutation that puts the
+    quantile columns back in the caller's order."""
     T = x.shape[-1]
-    B = int(np.prod(lead, dtype=np.int64))
+    B = int(np.prod(x.shape[:-1], dtype=np.int64))
     xb = x.reshape(B, T)
     q = torch.as_tensor(quantiles, dtype=x.dtype, device=x.device)
-    nq = q.shape[0]
     # each quantile is computed on its own: sort q as the reference does and
     # un-permute the columns at the end
     q_order = torch.argsort(q)
@@ -221,12 +199,67 @@ def selection_windowed_quantile_core(
     prev = torch.floor(vi)
     above = vi >= v - 1
     below = vi < 0
-    gamma = vi - prev
     pi = prev.to(torch.int32)
     nmax = torch.clamp(n, min=1)[..., None]
     one = torch.ones_like(pi)
     r_left = torch.where(above, nmax, torch.where(below, one, pi + 1))
     r_right = torch.where(above, nmax, torch.where(below, one, pi + 2))
+    return svals, slab, C, n, vi - prev, r_left, r_right, q_inv
+
+
+def _chunk_starts(C, nb_chunk):
+    """Members of each group before each chunk of ``nb_chunk`` blocks,
+    [B, nchunk, G], from the inclusive block counts C [B, nb, G]."""
+    return torch.cat([torch.zeros_like(C[:, :1]), C[:, nb_chunk - 1 : -1 : nb_chunk]], dim=1)
+
+
+def _emit_operands(x, labels, quantiles, *, G, Wb=64, nb_chunk=128, sort_impl="lax", alpha=1.0, beta=1.0):
+    """What the emission (``ops/cuda/emit_kernel.py:emit``) is given for
+    ``x`` [..., T]: (svals, slab, clo, r_left, r_right, n, chunk)."""
+    svals, slab, C, n, _, r_left, r_right, _ = _counted(x, labels, quantiles, G, Wb, nb_chunk, sort_impl, alpha, beta)
+    return svals, slab, _chunk_starts(C, nb_chunk), r_left, r_right, n, Wb * nb_chunk
+
+
+def selection_windowed_quantile_core(
+    x,
+    labels,
+    quantiles,
+    *,
+    G: int,
+    Wb: int = 64,
+    nb_chunk: int = 128,
+    slots: int = 32,
+    g_chunk: int = 64,
+    mode: str = "emit",
+    sort_impl: str = "lax",
+    alpha: float = 1.0,
+    beta: float = 1.0,
+):
+    """``x`` [..., T] values, ``labels`` [T] packed ``start*_PACK + length``
+    int32 (on x's device), ``quantiles`` [nq].  Returns [..., G, nq].
+
+    ``mode`` is the extraction engine (module doc): ``"emit"`` (the dense
+    emission, the reference's default here) or ``"gather"`` (per-query
+    block gather and in-block pick); both give the same floats.
+    ``sort_impl`` picks the stage-1 sort (module doc).  ``Wb`` is the
+    sorted-order block width, ``nb_chunk`` the blocks of an emission chunk
+    (the sorted row is padded to a whole number of chunks), ``slots`` the
+    ranks a chunk's emission tests a group at once on the CPU (more reruns
+    the emission at nq slots; the kernel needs none) and ``g_chunk`` the
+    groups each gather chunk gathers for: performance knobs, free of
+    semantics.
+    """
+    if mode not in ("emit", "gather"):
+        raise ValueError(f"Unknown selection mode {mode!r} (emit, gather).")
+    lead = x.shape[:-1]
+    svals, slab, C, n, gamma, r_left, r_right, q_inv = _counted(x, labels, quantiles, G, Wb, nb_chunk, sort_impl, alpha, beta)
+    if mode == "emit":
+        # --- stages 2b + 3: dense emission over chunks of nb_chunk blocks ---
+        left, right, maxv = emit_kernel.emit(svals, slab, _chunk_starts(C, nb_chunk), r_left, r_right, n, Wb * nb_chunk, slots)
+        return _finish(left, right, maxv[..., None], gamma, n, q_inv, lead)
+    B, nb = C.shape[:2]
+    nq = r_left.shape[-1]
+    nmax = torch.clamp(n, min=1)[..., None]
     # K = 2*nq + 1 rank queries; the last selects the max valid value (rank
     # n) used by the NaN-range clip (nbutils.py:144-147)
     r = torch.cat([r_left, r_right, nmax], dim=-1)       # [B, G, K]
@@ -258,17 +291,30 @@ def selection_windowed_quantile_core(
         pick = member & (csum == m[:, gs, :, None])
         val[:, gs] = torch.sum(torch.where(pick, vals_w, 0), dim=-1)
 
-    left, right, maxv = val[..., :nq], val[..., nq : 2 * nq], val[..., 2 * nq :]
+    return _finish(val[..., :nq], val[..., nq : 2 * nq], val[..., 2 * nq :], gamma, n, q_inv, lead)
+
+
+def _finish(left, right, maxv, gamma, n, q_inv, lead):
+    """The type-7 lerp of the selected values, clipped to the largest valid
+    value where it is NaN (nbutils.py:144-147), NaN where a group has no
+    valid value, the quantile columns back in the caller's order."""
     interp = _lerp(left, right, gamma)
     out = torch.where(torch.isnan(interp), maxv, interp)
     out = torch.where((n == 0)[..., None], torch.nan, out)
-    return out[..., q_inv].reshape(lead + (G, nq))
+    return out[..., q_inv].reshape(lead + out.shape[1:])
 
 
 def default_mode() -> str:
     """Extraction engine from the ``selection_mode`` option: ``"auto"``
-    resolves to ``"gather"`` on every device (the emit mode is not
-    ported)."""
+    resolves to ``"gather"`` on every device; ``"emit"`` and ``"gather"``
+    select themselves.  The reference sends its non-CPU backends to emit
+    because a TPU serves random row gathers at only ~147M rows/s.  On an
+    H100 emit is faster too: its fused step at 224 sites took 17.6 ms
+    against gather's 176 ms (``chip_smoke.py`` phase 6), because gather's
+    stage 3 is PyTorch scans and gathers, not one kernel.  ``"auto"`` stays
+    gather for now: CUDA reaches the selection engine only under
+    ``selection_on_tpu=True``, and emit on the CPU has not been timed
+    against gather, so a choice by device waits for that measurement."""
     from ..utils.options import get_option
 
     mode = get_option("selection_mode")
@@ -287,9 +333,18 @@ def default_sort_impl(dtype, device) -> str:
     return "pallas" if torch.device(device).type == "cuda" and dtype == torch.float32 else "lax"
 
 
-def max_chunk(G: int, nq: int, T: int, Wb: int = 64) -> int:
-    """Sites per call that keep the stage-3 block gather [B, G, K, 2*Wb]
-    and the block counts near 2^31 elements, as the reference bounds them."""
+def max_chunk(G: int, nq: int, T: int, Wb: int = 64, mode: str = "gather", nb_chunk: int = 128) -> int:
+    """Sites per call.  The gather engine keeps its stage-3 block gather
+    [B, G, K, 2*Wb] and the block counts near 2^31 elements, as the
+    reference bounds both engines.  The emit engine's stages 2b and 3 hold
+    no such tensor, so its bound is stage 2a's: about three int32 copies of
+    the block counts [B, nb, G + 1] and sixteen words a value of the padded
+    sorted rows, kept within 2^28 words (1 GiB)."""
+    if mode == "emit":
+        E = Wb * nb_chunk
+        Tp = -(-sort.padded_length(T) // E) * E
+        per_site = 3 * (Tp // Wb) * (G + 1) + 16 * Tp
+        return max(1, (1 << 28) // per_site)
     K = 2 * nq + 1
     per_site = G * K * 2 * Wb + 2 * (-(-T // Wb)) * G
     return max(1, (1 << 31) // max(per_site, 1))
@@ -303,6 +358,7 @@ def selection_windowed_quantile(
     beta: float = 1.0,
     Wb: int = 64,
     nb_chunk: int = 128,
+    slots: int = 32,
     g_chunk: int = 64,
     mode: str | None = None,
     sort_impl: str | None = None,
@@ -312,9 +368,11 @@ def selection_windowed_quantile(
     ``plan`` is a :class:`~xsdba_tpu_torch.utils.grouper.WindowMergePlan`
     whose ``sel_labels`` is not None; ``x`` [..., T] a tensor.  Returns
     [..., G, nq], equal to the re-sort oracle (``grouped_nan_quantile`` of
-    the plan's gather matrix) in the selected elements.  ``Wb``,
-    ``nb_chunk`` and ``g_chunk`` size the blocks and chunks
-    (:func:`selection_windowed_quantile_core`); they change no result."""
+    the plan's gather matrix) in the selected elements.  ``mode`` is the
+    extraction engine (``selection_mode`` by default: :func:`default_mode`).
+    ``Wb``, ``nb_chunk``, ``slots`` and ``g_chunk`` size the blocks, chunks
+    and slots (:func:`selection_windowed_quantile_core`); they change no
+    result."""
     if plan.sel_labels is None:
         raise ValueError("plan has no interval membership; use the merge path")
     G = int(plan.fast_mask.shape[0])
@@ -323,11 +381,12 @@ def selection_windowed_quantile(
     sort_impl = default_sort_impl(x.dtype, x.device) if sort_impl is None else sort_impl
     lead = x.shape[:-1]
     B = int(np.prod(lead, dtype=np.int64))
-    chunk = max_chunk(G, int(np.shape(quantiles)[0]), x.shape[-1], Wb)
+    chunk = max_chunk(G, int(np.shape(quantiles)[0]), x.shape[-1], Wb, mode, nb_chunk)
 
     def run(xc):
         return selection_windowed_quantile_core(
-            xc, lab, quantiles, G=G, Wb=Wb, nb_chunk=nb_chunk, g_chunk=g_chunk, mode=mode, sort_impl=sort_impl, alpha=alpha, beta=beta
+            xc, lab, quantiles, G=G, Wb=Wb, nb_chunk=nb_chunk, slots=slots, g_chunk=g_chunk, mode=mode, sort_impl=sort_impl,
+            alpha=alpha, beta=beta,
         )
 
     if B <= chunk:

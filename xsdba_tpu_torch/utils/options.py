@@ -41,27 +41,30 @@ SELECTION_BACKEND = "selection_backend"
 #: name is the JAX package's (there: TPU); in the port the CPU selects by
 #: default and CUDA takes the merge engine unless this is True.
 SELECTION_ON_TPU = "selection_on_tpu"
-#: Selection extraction engine: "auto" and "gather" take the per-query
-#: block gather; "emit" (the JAX package's dense emission) is not ported
-#: and raises NotImplementedError.
+#: Selection extraction engine: "emit" (the dense emission: the
+#: hand-written kernel csrc/emit_kernel.cu on CUDA, the reference's plain
+#: form on the CPU), "gather" (the per-query block gather) or "auto", which
+#: is "gather" on every device (the reference's TPU takes emit because it
+#: serves random row gathers slowly; see ops/selquant.py:default_mode for
+#: emit's time on the H100 and why "auto" waits).  Equal outputs.
 SELECTION_MODE = "selection_mode"
 #: Selection stage-1 sort: "auto" (the row sort's CUDA kernel, K7, for
 #: float32 on CUDA; a stable ``torch.sort`` elsewhere), "pallas" (the row
 #: sort's wrapper: K7 on a CUDA tensor, its plain twin on a CPU tensor),
 #: "xla" (the plain twin), or "lax" (a stable ``torch.sort``).
 SELECTION_SORT = "selection_sort"
-#: Run all merge-fold classes in ONE Pallas program (measured faster on
-#: v5e) vs per-class launches.
+#: Accepted for parity with the JAX package, with no effect: there it picks
+#: one Pallas program for every merge-fold class or one a class (a TPU
+#: choice); the port's fold is one kernel launch a call (K6), which serves
+#: every value with equal output.
 FUSE_FOLD_CLASSES = "fuse_fold_classes"
-#: Static-count extraction form: flat constant-index gather (True) vs
-#: 32-wide strip selects (False); bit-identical outputs.  Subsumed by
-#: ``extract_mode`` — kept as the back-compat boolean.
+#: Accepted for parity, with no effect: the JAX package's back-compat
+#: boolean for ``extract_mode`` (flat gather against strip selects).
 EXTRACT_FLAT = "extract_flat"
-#: Static-count extraction engine: "strip" (32-wide static slices +
-#: constant-mask selects), "flat" (one constant-index gather from the
-#: flattened group axis), "matmul" (one-hot MXU contraction at
-#: Precision.HIGHEST — bit-exact for f32, see ops/quantile.py), or "auto"
-#: (the measured per-backend default; honors ``extract_flat=True``).
+#: Accepted for parity, with no effect: the JAX package's static-count
+#: extraction forms ("strip", "flat", "matmul", "auto") are TPU forms of one
+#: gather with equal outputs; the port has one extraction form, which
+#: serves every value.
 EXTRACT_MODE = "extract_mode"
 #: Device of numpy data entering the public entry points (``train``,
 #: ``adjust``, ``Grouper.apply``): "cuda" (the default; raises when no GPU
