@@ -18,11 +18,15 @@ Phases, each reported on lines of its own:
    tied nodes, values of +-inf, NaN and exactly on nodes), bit for bit; the
    bracketed lookup at [512, 54750] with the monthly brackets and at a
    small odd shape with random brackets (w = 0 and 1, g0 == g1); the fused
-   multiply-add against its emulation in f32 and f64 (same shape,
-   broadcast, a transposed operand; +-0, +-inf, NaN, subnormals, products
-   that cancel against c) and at the shapes its paths give it (the heavy
-   extraction's lerp on the operands phase 6 times, the QDM step's virtual
-   index and lerp, the selection step's lerp on slices); the row sort (K3), the level
+   multiply-add against its emulation by bit pattern (any NaN equal to any
+   NaN) in f32 and f64 on every layout class its two kernels serve (the rows
+   kernel: contiguous and 16-byte aligned, a view one value off 16 bytes,
+   3 and 1 values, n % 4 = 3, a trailing and a leading broadcast, 0-dim
+   operands; the strided fallback: a transposed operand; +-0, +-inf, NaN,
+   subnormals, products that cancel against c) and at the shapes its paths
+   give it (the heavy extraction's lerp on the operands phase 6 times, the
+   QDM step's virtual index and lerp, the selection step's lerp on slices,
+   ExtremeValues' operands); the row sort (K3), the level
    build (K5) and the window fold (K6) on the heavy path's slab of 512 rows
    (ref and hist of 256 sites), K3 also on its rows cut to 32 values and
    padded with +inf to 1024 (the warp sort at 1 and 32 values a lane) and
@@ -43,8 +47,10 @@ Phases, each reported on lines of its own:
    engine's emit mode) against its twin by bit pattern: 8 sites of the
    selection data at windows 5 and 31, f32 and f64, finite and NaN-masked
    (two sites all NaN), wet-day rows of +-0.0 ties where the twin's 2
-   slots overflow, and the selection path's first site chunk of its 448
-   rows;
+   slots overflow, synthetic labels (``emit_edge_operands``: 1, 12, 365,
+   366 and 1023 groups, windows 1, 5 and 31, wrapping intervals, an all-NaN
+   row, a group with no valid value, +-0.0 ties, chunks of 8192 and of 192
+   values), and the selection path's first site chunk of its 448 rows;
 4. main path: ``QuantileDeltaMapping.train(...).adjust(...)`` on CUDA
    tensors of 512 sites x 150 noleap years, f32, ``nquantiles=50``,
    monthly groups; finite, its adjust one launch of the bracketed lookup
@@ -64,15 +70,16 @@ Phases, each reported on lines of its own:
    (``eqm_train_from_raw`` + ``qm_adjust_core``) at 1e-12; then the same at
    window 5, through K3 and K4;
    5b. selection: the same public call under
-   ``set_options(selection_on_tpu=True)`` on NUMPY inputs of 224 sites x
-   150 years of the heavy recipe (numpy data runs on the card by default);
-   a CUDA result, finite, through K7 and K1 and no merge kernel, equal on
-   the first 4 sites to the port's CPU path and to the re-sort oracle;
-   again on a NaN-masked copy (2 sites all NaN, 10 % of the values of 4
-   more NaN), first 8 sites; both again under ``selection_mode="emit"``:
-   through K7, the emission kernel and K1 and no merge kernel, NaN exactly
-   where the data is missing, scen ``==`` to the gather engine's on every
-   value;
+   ``set_options(selection_on_tpu=True, selection_mode="gather")`` on
+   NUMPY inputs of 224 sites x 150 years of the heavy recipe (numpy data
+   runs on the card by default); a CUDA result, finite, through K7 and K1
+   and no merge kernel, equal on the first 4 sites to the port's CPU path
+   and to the re-sort oracle; again on a NaN-masked copy (2 sites all NaN,
+   10 % of the values of 4 more NaN), first 8 sites; both again in the
+   default mode (``"auto"``, which on CUDA is emit) and the finite one
+   under ``selection_mode="emit"``: through K7, the emission kernel and K1
+   and no merge kernel, NaN exactly where the data is missing, scen ``==``
+   to the gather engine's on every value;
    5c. multivariate (numpy inputs, so on the card): MBCn-a, ``bench.py``'s
    workload (64 sites x 3 variables x 30 noleap years, N(10, 3) f32 from
    numpy seeds 1 and 2, ``group="time"``, nq 50, 20 rotations,
@@ -188,9 +195,10 @@ Phases, each reported on lines of its own:
    fused QDM step with ``utils.profiling.timed`` beside its CUDA-event
    median, and ``timed``'s best is at least the events' least sample;
 6. times (2 warm-ups, median of 5 and the spread): the fused QDM, windowed
-   EQM (merge) and selection steps (at 224 sites the gather and emit
-   engines and the merge engine in turns; the emit step's peak memory
-   above the held, under 2 GiB) in gridpoint-years/s (CUDA events), the
+   EQM (merge) and selection steps (at 224 sites the gather engine, the
+   default mode's emit engine and the merge engine in turns; the emit
+   step's peak memory above the held, under 2 GiB) in gridpoint-years/s
+   (CUDA events), the
    public calls on the same data (host clock; here and in every phase, a
    call timed by the host clock repeatedly starts from an empty device-copy
    cache, so it uploads its numpy inputs as before the cache, and only
@@ -200,7 +208,7 @@ Phases, each reported on lines of its own:
    and against one PyTorch call computing the same function where there is
    one (timed the same way; K7's ``torch.sort`` sorts the keys alone,
    without the payload; K5's sorts the top level's runs, one of its four
-   levels; fma's is ``torch.addcmul``), K1 also on the monthly
+   levels; fma's is ``torch.addcmul``, timed in turns with the kernel), K1 also on the monthly
    partition's long rows, fma also on same-shape operands and in float64,
    K3's long-row variant at m = 2048, the peak device memory of
    the heavy and selection steps and of the heavy public call, the MBCn-a
@@ -277,6 +285,9 @@ from xsdba_tpu_torch.utils import profiling
 
 N_SITES, N_YEARS, NQ = 512, 150, 50
 CHECK_SITES = 8
+# the emission's synthetic cases: group counts (1023 is the label packing's
+# largest) and values a row
+EMIT_EDGE_GROUPS, EMIT_EDGE_T = (1, 12, 365, 366, 1023), 9000
 HEAVY_SITES, HEAVY_YEARS, HEAVY_WINDOW = 256, 150, 31
 HEAVY_CHECK = 4
 SMALL_WINDOW = 5
@@ -924,6 +935,27 @@ def _compare(label, got, want):
     return err
 
 
+def _compare_bits(label, got, want):
+    """Print and return (values differing by bit pattern, any NaN equal to
+    any NaN, max abs diff)."""
+    torch.cuda.synchronize()
+    both_nan = torch.isnan(got) & torch.isnan(want)
+    n_diff = int(((_bits(got) != _bits(want)) & ~both_nan).sum())
+    err = _max_abs(got, want)
+    print(f"[kernel] {label} {tuple(got.shape)}: {n_diff} of {got.numel()} values differ from the twin by bit pattern "
+          f"(max abs diff {err:.3g})", flush=True)
+    assert n_diff == 0, f"{label}: kernel and twin disagree"
+    return err
+
+
+def _hold_fma(err, label, *args):
+    """``fma`` against its emulation by bit pattern, its layout's path named."""
+    lay = fma_kernel.layout(*args)
+    label = f"fma {label} [{lay.path}, {lay.shape}, dense {lay.dense}]"
+    err["fma"] = max(err.get("fma", 0.0), _compare_bits(label, fma_kernel.fma(*args), fma_kernel.fma_reference(*args)))
+    return lay.path
+
+
 def _hold(err, key, label, kernel, twin, *args):
     """``kernel(*args)`` against ``twin(*args)`` (:func:`_compare`), the
     largest difference so far kept under ``err[key]``."""
@@ -963,6 +995,30 @@ def emit_operands(x, plan):
     q = equally_spaced_nodes(NQ)
     G = int(plan.fast_mask.shape[0])
     return _emit_operands(x, plan_labels(plan, x.device), q, G=G, sort_impl=default_sort_impl(x.dtype, x.device))
+
+
+def emit_edge_operands(B, T, G, window, dtype, seed=0, device="cpu", nb_chunk=128):
+    """The emission's operands on synthetic labels: T values a row on a
+    cycle of G groups, each value a member of the window of groups centred
+    on its own (intervals of min(window, G) groups from (t - window // 2)
+    mod G, so some wrap past G - 1; with G groups or more a value is in
+    every group), a seventh of the values +-0.0; row 0 all NaN, row 1 NaN
+    on group G - 1's own values (with window 1 that group has no valid
+    value), row 2 15 % NaN.  Stages 1 and 2a as the selection path runs
+    them, nq = NQ, chunks of nb_chunk blocks of 64."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(0, 1, (B, T))
+    x[:, ::7] = np.where(rng.random(x[:, ::7].shape) < 0.5, 0.0, -0.0)
+    day = np.arange(T) % G
+    lab = (((day - window // 2) % G) * 1024 + min(window, G)).astype(np.int32)
+    x[0] = np.nan
+    if B > 1:
+        x[1, day == G - 1] = np.nan
+    if B > 2:
+        x[2, rng.random(T) < 0.15] = np.nan
+    t = torch.from_numpy(x).to(device, dtype)
+    return _emit_operands(t, torch.from_numpy(lab).to(device), equally_spaced_nodes(NQ), G=G, nb_chunk=nb_chunk,
+                          sort_impl=default_sort_impl(dtype, t.device))
 
 
 def emit_overflows(ops, slots):
@@ -1058,16 +1114,17 @@ def _in_turns(run_kern, run_twin, reps=5, batch=1):
     return _summary(kern_ms), _summary(twin_ms)
 
 
-def _steps_in_turns(steps, reps=5):
+def _steps_in_turns(steps, reps=5, batch=1):
     """Several steps timed in turns (each order reversed every other
-    round) after two warm-ups each; returns {name: summary}."""
+    round) after two warm-ups each, a sample ``batch`` calls (see
+    :func:`_time_ms`); returns {name: summary}."""
     for fn in steps.values():
         _time_ms(fn, warmup=2, reps=0)
     acc = {k: [] for k in steps}
     names = list(steps)
     for i in range(reps):
         for k in names if i % 2 == 0 else names[::-1]:
-            acc[k] += _time_ms(steps[k], warmup=0, reps=1)
+            acc[k] += _time_ms(steps[k], warmup=0, reps=1, batch=batch)
     return {k: _summary(v) for k, v in acc.items()}
 
 
@@ -1877,39 +1934,54 @@ def main() -> int:
     odd_g1 = np.where(rng.random(1001) < 0.2, odd_g0, rng.integers(0, 5, 1001))
     _hold(err, "bracketed", "bracketed lookup, random brackets nq=7 Gp=5", *kbr, *bracket_inputs(3, 5, 7, odd_g0, odd_g1, odd_w, seed=7, device=dev, extra=True))
 
-    # the fused multiply-add against its emulation on its edge cases (same
-    # shape, broadcast, a transposed operand), then at the shapes the paths
+    # the fused multiply-add against its emulation by bit pattern (any NaN
+    # equal to any NaN) on its edge cases, each layout class its kernel
+    # serves (the rows kernel: contiguous and 16-byte aligned, a view one
+    # value off alignment, fewer values than a vector and a count not a
+    # multiple of 4, a trailing and a leading broadcast, 0-dim operands; the
+    # strided fallback: a transposed operand), then at the shapes the paths
     # give it: the heavy extraction's lerp on the tensors phase 6 times (rows
     # [2 * sites, doy, nq] against a [doy, nq] gamma; also in float64 and with
     # gamma expanded), the same shape on the edge-case values, the QDM step's
     # virtual index ([sites, 12, 1] * [nq] + [nq]) and same-shape lerp, and
     # the selection step's lerp on slices of its [2 * sites, doy, 2 nq + 1]
     # picks, and ExtremeValues' operands (extremes_fma_inputs)
-    kf = (fma_kernel.fma, fma_kernel.fma_reference)
     fa, fc = torch.randn(2, 2 * HEAVY_SITES, 365, NQ, device=dev)
     fb = torch.rand(365, NQ, device=dev)
+    fma_paths = set()
     for dtype in (torch.float32, torch.float64):
         a, b, c = fma_inputs(2 * SEL_SITES * 365 * (2 * NQ + 1), dtype, seed=8, device=dev)  # the largest below
         n = 1_000_003
-        _hold(err, "fma", f"fma {dtype} same shape", *kf, a[:n], b[:n], c[:n])
-        a2, b2, c2 = a[:1_000_000].reshape(250, 80, 50), b[:4000].reshape(80, 50), c[:250].reshape(250, 1, 1)
-        _hold(err, "fma", f"fma {dtype} broadcast", *kf, a2, b2, c2)
-        _hold(err, "fma", f"fma {dtype} transposed operand", *kf, a[:1_000_000].reshape(250, 50, 80).transpose(1, 2), b2, c2)
+        cases = {
+            "same shape, n % 4 = 3": (a[:n], b[:n], c[:n]),
+            "contiguous, 16-byte aligned": (a[:1_000_000], b[:1_000_000], c[:1_000_000]),
+            "a view one value off 16 bytes": (a[1:1_000_001], b[:1_000_000], c[:1_000_000]),
+            "3 values (below one vector)": (a[:3], b[:3], c[:3]),
+            "1 value": (a[:1], b[:1], c[:1]),
+            "broadcast": (a[:1_000_000].reshape(250, 80, 50), b[:4000].reshape(80, 50), c[:250].reshape(250, 1, 1)),
+            "trailing broadcast (a value a row)": (a[:1_000_000].reshape(250, 4000), b[:1_000_000].reshape(250, 4000), c[:250].reshape(250, 1)),
+            "leading broadcast (a repeated row)": (a[:1_000_000].reshape(250, 4000), b[:4000], c[:4000].reshape(1, 4000)),
+            "0-dim operands": (a[:100_001], b[7].reshape(()), c[9].reshape(())),
+            "transposed operand": (a[:1_000_000].reshape(250, 50, 80).transpose(1, 2), b[:4000].reshape(80, 50), c[:250].reshape(250, 1, 1)),
+        }
+        for label, args in cases.items():
+            fma_paths.add(_hold_fma(err, f"{dtype} {label}", *args))
         timed = (fa.to(dtype), fb.to(dtype), fc.to(dtype))
-        _hold(err, "fma", f"fma {dtype} heavy lerp, the timed operands", *kf, *timed)
-        _hold(err, "fma", f"fma {dtype} heavy lerp, gamma expanded", *kf, timed[0], timed[1].expand_as(timed[0]).contiguous(), timed[2])
-        _hold(err, "fma", f"fma {dtype} heavy lerp, edge values", *kf, a[: fa.numel()].reshape(fa.shape), b[: fb.numel()].reshape(fb.shape), c[: fc.numel()].reshape(fc.shape))
+        _hold_fma(err, f"{dtype} heavy lerp, the timed operands", *timed)
+        _hold_fma(err, f"{dtype} heavy lerp, gamma expanded", timed[0], timed[1].expand_as(timed[0]).contiguous(), timed[2])
+        _hold_fma(err, f"{dtype} heavy lerp, edge values", a[: fa.numel()].reshape(fa.shape), b[: fb.numel()].reshape(fb.shape), c[: fc.numel()].reshape(fc.shape))
         count, node = a[: N_SITES * 12].reshape(N_SITES, 12, 1), b[:NQ]
-        _hold(err, "fma", f"fma {dtype} QDM virtual index", *kf, count, node, c[:NQ])
+        _hold_fma(err, f"{dtype} QDM virtual index", count, node, c[:NQ])
         lerp = tuple(x[: N_SITES * 12 * NQ].reshape(N_SITES, 12, NQ) for x in (a, b, c))
-        _hold(err, "fma", f"fma {dtype} QDM lerp", *kf, *lerp)
+        _hold_fma(err, f"{dtype} QDM lerp", *lerp)
         picks = a.reshape(2 * SEL_SITES, 365, 2 * NQ + 1)
         gamma = b[: 2 * SEL_SITES * 365 * NQ].reshape(2 * SEL_SITES, 365, NQ)
-        _hold(err, "fma", f"fma {dtype} selection lerp on slices", *kf, picks[..., NQ : 2 * NQ], gamma, picks[..., :NQ])
-        del a, b, c, a2, b2, c2, timed, count, node, lerp, picks, gamma
+        _hold_fma(err, f"{dtype} selection lerp on slices", picks[..., NQ : 2 * NQ], gamma, picks[..., :NQ])
+        del a, b, c, cases, timed, count, node, lerp, picks, gamma
         for label, args in extremes_fma_inputs(PR_SITES, 365 * PR_YEARS, dtype, seed=10, device=dev).items():
-            _hold(err, "fma", f"fma {dtype} ExtremeValues {label}", *kf, *args)
+            _hold_fma(err, f"{dtype} ExtremeValues {label}", *args)
         del args
+    assert fma_paths == {"rows", "strided"}, fma_paths
 
     th, (href_np, hhist_np, hsim_np) = heavy_problem(HEAVY_SITES, HEAVY_YEARS)
     href, hhist, hsim = (torch.from_numpy(a).to(dev) for a in (href_np, hhist_np, hsim_np))
@@ -1986,6 +2058,19 @@ def main() -> int:
         assert emit_overflows(wops, EMIT_WET_SLOTS), "the wet-day rows no longer overflow the twin's slots"
         err["emit"] = max(err["emit"], _compare_emit(f"wet days, +-0.0 ties, twin slots={EMIT_WET_SLOTS} (overflowed: rerun at nq) {dtype}", wops, EMIT_WET_SLOTS))
     del wops
+    # synthetic labels (emit_edge_operands): G = 1, 12, 365, 366 and the
+    # packing's largest, 1023 (the most shared memory: 182,256 bytes in
+    # float64), windows 1, 5 and 31 (wrapping intervals; with G at or below
+    # the window every value in every group), an all-NaN row and a group with
+    # no valid value, +-0.0 ties, chunks of 8192 values and of 192 (a
+    # partial tile)
+    for G_e in EMIT_EDGE_GROUPS:
+        for window in (1, SMALL_WINDOW, HEAVY_WINDOW):
+            for dtype in (torch.float32, torch.float64):
+                for nbc in (128, 3):
+                    ops = emit_edge_operands(4, EMIT_EDGE_T, G_e, window, dtype, seed=G_e + window, device=dev, nb_chunk=nbc)
+                    err["emit"] = max(err["emit"], _compare_emit(f"synthetic G={G_e} window={window} {dtype}", ops))
+    del ops
     e_rows = max_chunk(int(plan.fast_mask.shape[0]), NQ, sel_np[0].shape[1], mode="emit")
     eops = emit_operands(torch.cat([sref, shist])[:e_rows].contiguous(), plan)
     err["emit"] = max(err["emit"], _compare_emit(f"selection path's site chunk ({e_rows} of {2 * SEL_SITES} rows)", eops))
@@ -2095,9 +2180,10 @@ def main() -> int:
               f"(vs the f32 re-sort oracle {oracle_err:.3g}); in float64 vs the re-sort oracle {_max_abs(got64, oracle64):.3g}", flush=True)
         del hscen
 
-    # 5b. the selection engine through the public call, on numpy inputs
+    # 5b. the selection engine through the public call, on numpy inputs:
+    # its gather mode first
     sel_counts, sel_scen = {}, {}
-    with xp.set_options(selection_on_tpu=True):
+    with xp.set_options(selection_on_tpu=True, selection_mode="gather"):
         for tag, arrays, ncheck in (("finite", sel_np, SEL_CHECK), ("NaN-masked", sel_masked, SEL_NAN_CHECK)):
             torch.cuda.synchronize()
             _reset_counts()
@@ -2125,29 +2211,33 @@ def main() -> int:
                   f"{n_cpu} values differ from the CPU port (max abs diff {_max_abs(got, cpu):.3g}), {n_oracle} from the re-sort "
                   f"oracle (max abs diff {_max_abs(got, oracle):.3g})", flush=True)
             sel_scen[tag] = sscen
-    # the same calls on the emit engine: the scen of the gather engine, K7,
-    # the emission kernel and K1, no merge kernel
+    # the same calls in the default mode, which on CUDA is emit, as the
+    # reference resolves "auto" off the CPU, and finite again under
+    # selection_mode="emit": the scen of the gather engine, K7, the emission
+    # kernel and K1, no merge kernel
     emit_counts = {}
-    with xp.set_options(selection_on_tpu=True, selection_mode="emit"):
-        for tag, arrays in (("finite", sel_np), ("NaN-masked", sel_masked)):
+    for mode, tag, arrays in ((None, "finite", sel_np), (None, "NaN-masked", sel_masked), ("emit", "finite", sel_np)):
+        with xp.set_options(selection_on_tpu=True, **({} if mode is None else {"selection_mode": mode})):
             torch.cuda.synchronize()
             _reset_counts()
             t0 = time.perf_counter()
             escen = run_windowed_path(*arrays, sth)
             torch.cuda.synchronize()
             first_s = time.perf_counter() - t0
-            counts = emit_counts[tag] = _counts()
-            r_np, h_np, s_np = arrays
-            want_nan = np.isnan(s_np) | np.isnan(r_np).all(-1)[:, None] | np.isnan(h_np).all(-1)[:, None]
-            assert escen.is_cuda and torch.equal(torch.isnan(escen).cpu(), torch.from_numpy(want_nan)), f"emit {tag}: NaN where the data has none"
-            assert all(counts[k] >= 1 for k in ("sort_rows_with_payload", "emit", "interp_table_3d")), f"emit {tag}: launches {counts}"
-            assert all(counts[k] == 0 for k in merge.launches), f"emit {tag}: a merge kernel ran: {counts}"
-            n_diff = int((~_nan_equal(escen, sel_scen[tag])).sum())
-            assert n_diff == 0, f"emit {tag}: {n_diff} values differ from the gather engine's scen"
-            print(f"[selection] EQM dayofyear window={HEAVY_WINDOW} ({tag}) train+adjust on numpy {tuple(escen.shape)} f32 -> {escen.device}, "
-                  f"selection_mode='emit': NaN exactly where the data is missing, launches {counts}, {first_s:.3f} s first call; "
-                  f"scen == the gather engine's on all {escen.numel()} values [{smi}]", flush=True)
-            del escen
+        counts = _counts()
+        if mode is None:
+            emit_counts[tag] = counts
+        r_np, h_np, s_np = arrays
+        want_nan = np.isnan(s_np) | np.isnan(r_np).all(-1)[:, None] | np.isnan(h_np).all(-1)[:, None]
+        assert escen.is_cuda and torch.equal(torch.isnan(escen).cpu(), torch.from_numpy(want_nan)), f"emit {tag}: NaN where the data has none"
+        assert all(counts[k] >= 1 for k in ("sort_rows_with_payload", "emit", "interp_table_3d")), f"emit {tag}: launches {counts}"
+        assert all(counts[k] == 0 for k in merge.launches), f"emit {tag}: a merge kernel ran: {counts}"
+        n_diff = int((~_nan_equal(escen, sel_scen[tag])).sum())
+        assert n_diff == 0, f"emit {tag}: {n_diff} values differ from the gather engine's scen"
+        print(f"[selection] EQM dayofyear window={HEAVY_WINDOW} ({tag}) train+adjust on numpy {tuple(escen.shape)} f32 -> {escen.device}, "
+              f"selection_mode={'default (auto)' if mode is None else repr(mode)}: NaN exactly where the data is missing, "
+              f"launches {counts}, {first_s:.3f} s first call; scen == the gather engine's on all {escen.numel()} values [{smi}]", flush=True)
+        del escen
     del sel_scen
 
     _wrap.clear_device_cache()   # no cached copies of the phases before in what is held
@@ -2303,7 +2393,7 @@ def main() -> int:
     # 5e. the second-order and multivariate transforms through the public
     # calls: ExtremeValues on config 2's DQM scen, PrincipalComponents at 512
     # sites, OTC / dOTC at one site; each held against the CPU port and timed
-    ours = ("interp_rows_kernel", "interp_bracketed_kernel", "fma_strided_kernel", "sort_rows_warp_kernel", "sort_rows_alt_kernel", "build_levels_kernel", "fold_windows_kernel",
+    ours = ("interp_rows_kernel", "interp_bracketed_kernel", "fma_rows_kernel", "fma_strided_kernel", "sort_rows_warp_kernel", "sort_rows_alt_kernel", "build_levels_kernel", "fold_windows_kernel",
             "radix_tile_sort_kernel", "merge_pass_kernel", "emit_kernel")
     second_counts = second_order_phase(dev, ours, tp, (pref_np, phist_np, psim_np), dqm_runs["config 2"]["out"]["scen"].data)
     print(f"[second-order] launches by path (kernels launched at least once): {({p: {k: n for k, n in c.items() if n} for p, c in second_counts.items()})}", flush=True)
@@ -2373,14 +2463,14 @@ def main() -> int:
           f"the {base / 2**30:.3f} GiB held before it); public call: peak {api_peak / 2**30:.3f} GiB", flush=True)
 
     def sel_step():
-        with xp.set_options(selection_on_tpu=True):
+        with xp.set_options(selection_on_tpu=True, selection_mode="gather"):
             return eqm_train_adjust_windowed(sref, shist, ssim, hgi.merge_plan, q, hbrackets, kind="+", interp="linear", extrapolation="constant")
 
     def merge_step():
         return eqm_train_adjust_windowed(sref, shist, ssim, hgi.merge_plan, q, hbrackets, kind="+", interp="linear", extrapolation="constant", assume_finite=True)
 
-    def emit_step():
-        with xp.set_options(selection_on_tpu=True, selection_mode="emit"):
+    def emit_step():  # the default mode: emit on CUDA
+        with xp.set_options(selection_on_tpu=True):
             return eqm_train_adjust_windowed(sref, shist, ssim, hgi.merge_plan, q, hbrackets, kind="+", interp="linear", extrapolation="constant")
 
     engines = _steps_in_turns({"selection (gather)": sel_step, "selection (emit)": emit_step, "merge": merge_step})
@@ -2399,9 +2489,11 @@ def main() -> int:
     sel_step()
     torch.cuda.synchronize()
     sel_peak = torch.cuda.max_memory_allocated(dev)
-    with xp.set_options(selection_on_tpu=True):
-        sapi = _summary(_host_ms(lambda: run_windowed_path(*sel_np, sth)))
-    print(f"[time] public selection EQM train+adjust on numpy inputs, same data (host clock): {_fmt(sapi)}", flush=True)
+    for mode in ("gather", None):
+        with xp.set_options(selection_on_tpu=True, **({} if mode is None else {"selection_mode": mode})):
+            sapi = _summary(_host_ms(lambda: run_windowed_path(*sel_np, sth)))
+        print(f"[time] public selection EQM train+adjust on numpy inputs, same data, selection_mode="
+              f"{'default (auto: emit)' if mode is None else repr(mode)} (host clock): {_fmt(sapi)}", flush=True)
     print(f"[memory] selection fused step: peak {sel_peak / 2**30:.3f} GiB allocated ({(sel_peak - base) / 2**30:.3f} GiB above "
           f"the {base / 2**30:.3f} GiB held before it)", flush=True)
 
@@ -2555,7 +2647,8 @@ def main() -> int:
     del wide
 
     # one PyTorch call computing each kernel's function, where there is one:
-    # torch.sort of the same rows, torch.addcmul for fma (the lookups have none)
+    # torch.sort of the same rows, torch.addcmul for fma, timed in turns with
+    # the kernel (the lookups and the emission have none)
     folded = merge.fold_windows(ordered, levels, HEAVY_WINDOW, G, ymax=ymax)
     merged5 = merge.merged_window_rows(ordered5, SMALL_WINDOW, G, ymax=ymax)
     shuffle = lambda a: a[..., torch.randperm(a.shape[-1], device=dev)].contiguous()  # noqa: E731
@@ -2567,9 +2660,14 @@ def main() -> int:
         "K6": lambda: torch.sort(wins, dim=-1),
         "K4": lambda: torch.sort(wins5, dim=-1),
         "K7": lambda: torch.sort(key7, dim=-1, stable=True),
-        "fma": lambda: torch.addcmul(fc, fa, fb),
     }
     library_ms = {k: _summary(_time_ms(fn, **kb))["median_ms"] for k, fn in library.items()}
+    # fma and torch.addcmul in turns on the heavy lerp's operands
+    fma_turns = _steps_in_turns({"fma": lambda: fma_kernel.fma(fa, fb, fc), "addcmul": lambda: torch.addcmul(fc, fa, fb)},
+                                reps=7, batch=KERNEL_BATCH)
+    library_ms["fma"] = fma_turns["addcmul"]["median_ms"]
+    print(f"[time] fma {shapes['fma']} f32 in turns with torch.addcmul: kernel {_fmt(fma_turns['fma'])}; torch.addcmul "
+          f"{_fmt(fma_turns['addcmul'])}; kernel / addcmul {fma_turns['fma']['median_ms'] / library_ms['fma']:.3f} [{smi}]", flush=True)
     for k, ms in library_ms.items():
         print(f"[time] {k} library call {'torch.addcmul' if k == 'fma' else 'torch.sort'} {shapes[k]}: median {ms:.3f} ms", flush=True)
     del wins, wins5, runs

@@ -27,6 +27,7 @@ from chip_smoke import (
     config2_train,
     dqm_doy_adjust,
     dqm_doy_train,
+    emit_edge_operands,
     emit_operands,
     emit_overflows,
     example_problem,
@@ -578,26 +579,52 @@ def test_bracketed_wrapper_raises_over_its_budget(cuda):
         k.interp_bracketed(*args)
 
 
+def _same_bits_or_nan(got, want):
+    """Equal by bit pattern, any NaN equal to any NaN (-0.0 differs from +0.0)."""
+    ints = torch.int32 if got.dtype == torch.float32 else torch.int64
+    return bool(((got.view(ints) == want.view(ints)) | (torch.isnan(got) & torch.isnan(want))).all())
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("case", ["same shape", "broadcast", "transposed", "scalars", "off 16 bytes", "short"])
-def test_fma_kernel_matches_emulation_bitwise(cuda, dtype, case):
+@pytest.mark.parametrize("case,path", [
+    ("same shape", "rows"), ("contiguous aligned", "rows"), ("one operand off 16 bytes", "rows"),
+    ("broadcast", "rows"), ("trailing broadcast", "rows"), ("leading broadcast", "rows"), ("transposed rows", "rows"),
+    ("transposed", "strided"),
+    ("scalars", "rows"), ("off 16 bytes", "rows"), ("short", "rows"), ("one value", "rows"),
+])
+def test_fma_kernel_matches_emulation_bitwise(cuda, dtype, case, path):
+    """Each layout class takes its kernel (ops/cuda/fma_kernel.py:layout)
+    and equals the emulation by bit pattern."""
     a, b, c = fma_inputs(200_003, dtype, seed=len(case), device=cuda)
-    if case == "broadcast":      # the static extraction's lerp: [rows, G, nq] against [G, nq], and a column
+    if case == "contiguous aligned":
+        a, b, c = a[:200_000], b[:200_000], c[:200_000]
+    elif case == "one operand off 16 bytes":
+        a, b, c = a[1:200_001], b[:200_000], c[:200_000]
+    elif case == "broadcast":      # the static extraction's lerp: [rows, G, nq] against [G, nq], and a column
         a, b, c = a[:200_000].reshape(50, 80, 50), b[:4000].reshape(80, 50), c[:50].reshape(50, 1, 1)
-    elif case == "transposed":
+    elif case == "trailing broadcast":
+        a, b, c = a[:200_000].reshape(50, 4000), b[:200_000].reshape(50, 4000), c[:50].reshape(50, 1)
+    elif case == "leading broadcast":
+        a, b, c = a[:200_000].reshape(50, 4000), b[:4000], c[:4000].reshape(1, 4000)
+    elif case == "transposed rows":  # two dimensions: the rows kernel reads a through its strides
         a, b, c = a[:200_000].reshape(400, 500).T, b[:200_000].reshape(500, 400), c[:500].reshape(500, 1)
+    elif case == "transposed":       # three dimensions that do not merge: the strided kernel
+        a, b, c = a[:200_000].reshape(50, 50, 80).transpose(1, 2), b[:4000].reshape(80, 50), c[:50].reshape(50, 1, 1)
     elif case == "scalars":      # the virtual index's offset: 0-dim operands
         b, c = b[7].reshape(()), c[9].reshape(())
     elif case == "off 16 bytes":
         a, b, c = a[1:], b[1:], c[1:]
     elif case == "short":
         a, b, c = a[:3], b[:3], c[:3]
+    elif case == "one value":
+        a, b, c = a[:1], b[:1], c[:1]
+    assert fma_kernel.layout(a, b, c).path == path
     before = fma_kernel.launches
     got = fma(a, b, c)
     torch.cuda.synchronize()
     assert fma_kernel.launches == before + 1 and got.is_cuda and got.dtype == dtype
     assert got.shape == torch.broadcast_shapes(a.shape, b.shape, c.shape)
-    assert _nan_equal(got, fma_kernel.fma_reference(a, b, c))
+    assert _same_bits_or_nan(got, fma_kernel.fma_reference(a, b, c))
 
 
 def test_fma_kernel_rejects_mixed_operands(cuda):
@@ -1100,6 +1127,31 @@ def test_emit_engine_on_cuda_equals_gather(cuda, Wb, nb_chunk):
     assert _nan_equal(got.cpu(), selquant.selection_windowed_quantile(x.cpu(), plan, q, mode="emit", **kw))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("window", [1, 5, 31])
+@pytest.mark.parametrize("G", [1, 12, 365, 366, 1023])
+def test_emit_kernel_on_synthetic_labels(cuda, G, window, dtype):
+    """Every group count up to the label packing's 1023 (the most shared
+    memory), wrapping intervals, an all-NaN row, a group with no valid
+    value, +-0.0 ties, whole and partial tiles: equal to the twin."""
+    for nb_chunk in (128, 3):
+        ops = emit_edge_operands(4, 9000, G, window, dtype, seed=G + window, device=cuda, nb_chunk=nb_chunk)
+        got = emit_kernel.emit(*ops)
+        torch.cuda.synchronize()
+        assert _same_picks(got, emit_kernel.emit_reference(*ops))
+
+
+def test_emit_kernel_at_the_selection_site_chunk(cuda):
+    """The 123-row site chunk of the selection path at full width."""
+    t, data = heavy_problem(64, 150)
+    plan = xp.Grouper("time.dayofyear", window=31).indexes(t).merge_plan
+    rows = selquant.max_chunk(365, 50, len(t), mode="emit")
+    x = torch.from_numpy(np.concatenate(data[:2])[:rows]).to(cuda)
+    ops = emit_operands(x, plan)
+    assert tuple(ops[0].shape) == (rows, 65536)
+    assert _same_picks(emit_kernel.emit(*ops), emit_kernel.emit_reference(*ops))
+
+
 def test_emit_wrapper_rejects_operands_on_two_devices(cuda):
     t, data = heavy_problem(2, 4)
     plan = xp.Grouper("time.dayofyear", window=5).indexes(t).merge_plan
@@ -1121,8 +1173,26 @@ def test_public_emit_eqm_on_numpy_runs_on_the_card(cuda):
         got = run_windowed_path(*data, t)
     torch.cuda.synchronize()
     assert got.is_cuda and sort.launches >= 1 and emit_kernel.launches >= 1 and not any(merge.launches.values())
-    with xp.set_options(selection_on_tpu=True):
+    with xp.set_options(selection_on_tpu=True, selection_mode="gather"):
         assert _nan_equal(got, run_windowed_path(*data, t))
+
+
+def test_public_selection_takes_emit_by_default_on_the_card(cuda):
+    """selection_mode="auto" (the default) resolves to emit on CUDA, as the
+    reference resolves it off the CPU: the public train launches the
+    emission kernel, and its scen equals the gather engine's."""
+    t, data = heavy_problem(6, 5)
+    data = nan_masked(data)
+    emit_kernel.launches = 0
+    with xp.set_options(selection_on_tpu=True):
+        assert selquant.default_mode(cuda) == "emit"
+        got = run_windowed_path(*data, t)
+    torch.cuda.synchronize()
+    assert got.is_cuda and emit_kernel.launches >= 1
+    emit_kernel.launches = 0
+    with xp.set_options(selection_on_tpu=True, selection_mode="gather"):
+        want = run_windowed_path(*data, t)
+    assert emit_kernel.launches == 0 and _nan_equal(got, want)
 
 
 def test_second_adjust_uploads_nothing(cuda):

@@ -195,15 +195,34 @@ def test_emit_wrapper_checks_its_operands():
 
 def test_emit_mode_option():
     """``selection_mode="emit"`` selects emit on either device; "auto"
-    resolves to the gather engine on both."""
-    assert ps.default_mode() == "gather"
+    resolves as the reference resolves it per backend: gather on the CPU,
+    emit on CUDA (checked by the device it is given, with no card)."""
+    assert ps.default_mode("cpu") == ps.default_mode(torch.device("cpu")) == "gather"
+    assert ps.default_mode("cuda") == ps.default_mode(torch.device("cuda", 0)) == "emit"
+    with xp.set_options(selection_mode="gather"):
+        assert ps.default_mode("cuda") == "gather"
     with xp.set_options(selection_mode="emit"):
-        assert ps.default_mode() == "emit"
+        assert ps.default_mode("cpu") == "emit"
         _, gp = _indexes(5)
         x = _data(np.float32, 365 * YEARS)
         q = equally_spaced_nodes(8).astype(np.float32)
         got = ps.selection_windowed_quantile(torch.from_numpy(x), gp.merge_plan, q)
     _same_bits(got, ps.selection_windowed_quantile(torch.from_numpy(x), gp.merge_plan, q, mode="gather"))
+
+
+def test_auto_takes_gather_on_cpu_data(monkeypatch):
+    """"auto" on CPU data is the gather engine, as in the reference: the
+    emission's twin is never called, and the result is the reference's
+    gather result bit for bit."""
+    calls = []
+    real = emit_kernel.emit_reference
+    monkeypatch.setattr(emit_kernel, "emit_reference", lambda *a, **k: calls.append(1) or real(*a, **k))
+    gj, gp = _indexes(31)
+    x = _data(np.float32, 365 * YEARS)
+    q = equally_spaced_nodes(8).astype(np.float32)
+    got = ps.selection_windowed_quantile(torch.from_numpy(x), gp.merge_plan, q)
+    assert not calls
+    _same_bits(got, js.selection_windowed_quantile(jnp.asarray(x), gj.merge_plan, q, mode="gather"))
 
 
 # ------------------------------------------------------------- public API

@@ -346,6 +346,23 @@ def test_fma_emulation_is_the_exactly_rounded_fused_result(dtype):
     np.testing.assert_array_equal(gn[~finite], plain[~finite])
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_fma_emulation_gives_a_zero_the_fused_sign(dtype):
+    """A zero result by bit pattern: a sum of signed zeros where a or b is
+    zero, the rounded product's sign where it underflows against a zero c,
+    +0 where the product cancels c (IEEE 754's fused multiply-add)."""
+    from xsdba_tpu_torch.utils.tensor import fma_emulated
+
+    tdt = torch.float32 if dtype == np.float32 else torch.float64
+    tiny = 2.0**-80 if dtype == np.float32 else 2.0**-600          # tiny * tiny rounds to zero
+    cases = [(-0.0, 1.0, -0.0, -0.0), (0.0, -1.0, -0.0, -0.0), (-0.0, -1.0, -0.0, 0.0), (0.0, 1.0, -0.0, 0.0),
+             (-0.0, 1.0, 0.0, 0.0), (1.0, 1.0, -1.0, 0.0), (-3.0, 0.5, 1.5, 0.0), (-tiny, tiny, 0.0, -0.0),
+             (-tiny, tiny, -0.0, -0.0), (tiny, tiny, -0.0, 0.0)]
+    a, b, c, want = (torch.tensor(col, dtype=tdt) for col in zip(*cases))
+    got = fma_emulated(a, b, c)
+    assert torch.equal(got, want) and torch.equal(torch.signbit(got), torch.signbit(want))
+
+
 def test_fma_broadcasts_and_checks_its_operands():
     """A CPU tensor takes the emulation and launches nothing; operands of
     mixed dtype or device are refused on the CPU as on the card, through the

@@ -156,7 +156,7 @@ def test_engine_resolution():
     with xp.set_options(selection_backend=False):
         assert not ps.selection_ok(plan, q, "cpu")
     assert not ps.selection_ok(plan, np.ones((2, 5)), "cpu")
-    assert ps.default_mode() == "gather"
+    assert ps.default_mode("cpu") == "gather" and ps.default_mode("cuda:0") == "emit"
     assert ps.default_sort_impl(torch.float32, "cuda") == "pallas"
     assert ps.default_sort_impl(torch.float32, "cpu") == ps.default_sort_impl(torch.float64, "cuda") == "lax"
     with xp.set_options(selection_sort="xla"):

@@ -80,6 +80,7 @@ ALLOWED = {
     ("ops.rotation", "rand_rot_matrix", "dtype"): "jnp.float32 against torch.float32: each package's float32",
     ("ops.selquant", "selection_ok", "device"): "the port decides per device (CPU selects by default, CUDA on request)",
     ("ops.selquant", "default_sort_impl", "device"): "the stage-1 sort's default depends on the device (K7 on CUDA)",
+    ("ops.selquant", "default_mode", "device"): "resolves auto by the data's device, as the reference resolves it by jax.default_backend()",
 }
 
 

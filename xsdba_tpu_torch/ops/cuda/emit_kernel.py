@@ -17,9 +17,11 @@ than ``slots`` ranks.  :func:`emit_reference` is that form in PyTorch, its
 hit tensors cut over sites and groups so that none exceeds ``_HIT_BUDGET``
 elements; it is the CPU path and the twin the kernel is held to.  On a
 CUDA tensor :func:`emit` launches ``csrc/emit_kernel.cu`` instead, which
-stores no hit tensor (its comment has the design) and ignores ``slots``;
-a failed build or launch raises.  Both return a selected -0.0 as +0.0, as
-the JAX form's sums do.  ``launches`` counts the kernel launches (reset it
+stores no hit tensor and ignores ``slots``: it keeps a tile's membership
+as bit masks a group in shared memory, built from two toggles a value and
+a prefix XOR along the groups, and resolves the needed ranks a thread a
+rank (its comment has the design); a failed build or launch raises.  Both
+return a selected -0.0 as +0.0, as the JAX form's sums do.  ``launches`` counts the kernel launches (reset it
 by assignment).
 """
 

@@ -304,21 +304,19 @@ def _finish(left, right, maxv, gamma, n, q_inv, lead):
     return out[..., q_inv].reshape(lead + out.shape[1:])
 
 
-def default_mode() -> str:
-    """Extraction engine from the ``selection_mode`` option: ``"auto"``
-    resolves to ``"gather"`` on every device; ``"emit"`` and ``"gather"``
-    select themselves.  The reference sends its non-CPU backends to emit
-    because a TPU serves random row gathers at only ~147M rows/s.  On an
-    H100 emit is faster too: its fused step at 224 sites took 17.6 ms
-    against gather's 176 ms (``chip_smoke.py`` phase 6), because gather's
-    stage 3 is PyTorch scans and gathers, not one kernel.  ``"auto"`` stays
-    gather for now: CUDA reaches the selection engine only under
-    ``selection_on_tpu=True``, and emit on the CPU has not been timed
-    against gather, so a choice by device waits for that measurement."""
+def default_mode(device) -> str:
+    """Extraction engine from the ``selection_mode`` option for data on
+    ``device``: ``"auto"`` resolves as the reference resolves it per
+    backend, ``"gather"`` on the CPU, where gathers are cheap, and
+    ``"emit"`` elsewhere (CUDA: the emission kernel, whose fused step at 224
+    sites is under a tenth of gather's on the H100, ``chip_smoke.py`` phase 6);
+    ``"emit"`` and ``"gather"`` select themselves."""
     from ..utils.options import get_option
 
     mode = get_option("selection_mode")
-    return "gather" if mode == "auto" else mode
+    if mode != "auto":
+        return mode
+    return "gather" if torch.device(device).type == "cpu" else "emit"
 
 
 def default_sort_impl(dtype, device) -> str:
@@ -369,7 +367,8 @@ def selection_windowed_quantile(
     whose ``sel_labels`` is not None; ``x`` [..., T] a tensor.  Returns
     [..., G, nq], equal to the re-sort oracle (``grouped_nan_quantile`` of
     the plan's gather matrix) in the selected elements.  ``mode`` is the
-    extraction engine (``selection_mode`` by default: :func:`default_mode`).
+    extraction engine (``selection_mode`` for x's device by default:
+    :func:`default_mode`).
     ``Wb``, ``nb_chunk``, ``slots`` and ``g_chunk`` size the blocks, chunks
     and slots (:func:`selection_windowed_quantile_core`); they change no
     result."""
@@ -377,7 +376,7 @@ def selection_windowed_quantile(
         raise ValueError("plan has no interval membership; use the merge path")
     G = int(plan.fast_mask.shape[0])
     lab = plan_labels(plan, x.device)
-    mode = default_mode() if mode is None else mode
+    mode = default_mode(x.device) if mode is None else mode
     sort_impl = default_sort_impl(x.dtype, x.device) if sort_impl is None else sort_impl
     lead = x.shape[:-1]
     B = int(np.prod(lead, dtype=np.int64))

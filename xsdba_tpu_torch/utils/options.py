@@ -44,9 +44,8 @@ SELECTION_ON_TPU = "selection_on_tpu"
 #: Selection extraction engine: "emit" (the dense emission: the
 #: hand-written kernel csrc/emit_kernel.cu on CUDA, the reference's plain
 #: form on the CPU), "gather" (the per-query block gather) or "auto", which
-#: is "gather" on every device (the reference's TPU takes emit because it
-#: serves random row gathers slowly; see ops/selquant.py:default_mode for
-#: emit's time on the H100 and why "auto" waits).  Equal outputs.
+#: is "gather" on the CPU and "emit" on CUDA, as the reference resolves it
+#: per backend (ops/selquant.py:default_mode).  Equal outputs.
 SELECTION_MODE = "selection_mode"
 #: Selection stage-1 sort: "auto" (the row sort's CUDA kernel, K7, for
 #: float32 on CUDA; a stable ``torch.sort`` elsewhere), "pallas" (the row

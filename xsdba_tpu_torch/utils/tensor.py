@@ -100,13 +100,18 @@ def fma_emulated(a, b, c) -> torch.Tensor:
     uses Boldo and Melquiond's emulation through rounding to odd (exact
     while ``a * b`` neither overflows nor falls under 2^-969, where the
     product's error term leaves the float64 range), and a non-finite result
-    there takes the plain expression."""
+    there takes the plain expression.  A zero result takes the sign the
+    fused operation gives it: that of a sum of signed zeros where a or b is
+    zero, the rounded product's where only c is, +0 where a * b cancels c."""
     if a.dtype == torch.float32:
         return _round_to_odd(*_two_sum(a.double() * b.double(), c.double())).float()
     uh, ul = _two_prod(a, b)
     th, tl = _two_sum(c, uh)
     out = th + _round_to_odd(*_two_sum(tl, ul))
-    return torch.where(torch.isfinite(out), out, a * b + c)
+    p = a * b
+    zero = torch.where((a == 0) | (b == 0) | (c != 0), p + c, p)
+    out = torch.where(out == 0, zero, out)
+    return torch.where(torch.isfinite(out), out, p + c)
 
 
 def to_numpy(x) -> np.ndarray:
