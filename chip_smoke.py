@@ -442,6 +442,87 @@ def bracket_inputs(B, Gp, nq, g0, g1, w, seed=0, device="cpu", extra=False):
     return tuple(a.to(device) for a in (v, xs, ys, nv, steps(g0, torch.int32), steps(g1, torch.int32), steps(w, torch.float32)))
 
 
+def random_brackets(T, Gp, seed):
+    """[T] brackets over Gp groups with w = 0 and 1 and g0 == g1 among them."""
+    rng = np.random.default_rng(seed)
+    g0 = rng.integers(0, Gp, T)
+    g1 = np.where(rng.random(T) < 0.2, g0, rng.integers(0, Gp, T))
+    w = rng.random(T)
+    w[::5], w[1::5] = 0.0, 1.0
+    return g0, g1, w
+
+
+def off_16(a, words=1):
+    """A contiguous copy of ``a`` that starts ``words`` 4-byte words past a
+    16-byte boundary."""
+    b = torch.cat([a.new_zeros(words), a.reshape(-1)])[words:].reshape(a.shape)
+    assert b.is_contiguous() and b.data_ptr() % 16 == 4 * words
+    return b
+
+
+def holey_tables(B, Gp, nq, seed=0):
+    """Quantile-like tables [B, Gp, nq] as the grouped adjust's fast path
+    lays out trained tables with NaN factors inside (``kind="*"`` on dry
+    days: 0 / 0): ``ops/interp.py:_compact_sorted_tables`` of ascending
+    nodes whose factor is NaN on a leading run (up to a third of the
+    nodes) and on 10 % of the others, so the nodes carry +inf holes where
+    the lookup counts by value and takes the segment by position (ROADMAP
+    C31); some rows whole NaN.  Returns (xs, ys, nvalid int32)."""
+    from xsdba_tpu_torch.ops.interp import _compact_sorted_tables
+
+    rng = np.random.default_rng(seed)
+    xq = np.sort(rng.normal(0, 1, (B, Gp, nq)), axis=-1).astype(np.float32)
+    yq = rng.normal(0, 1, (B, Gp, nq)).astype(np.float32)
+    lead = rng.integers(0, nq // 3 + 1, (B, Gp))
+    yq[np.arange(nq) < lead[..., None]] = np.nan
+    yq[rng.random((B, Gp, nq)) < 0.1] = np.nan
+    yq[rng.random((B, Gp)) < 0.02] = np.nan
+    xs, ys, nv = _compact_sorted_tables(torch.from_numpy(xq), torch.from_numpy(yq))
+    return xs.contiguous(), ys.contiguous(), nv.to(torch.int32)
+
+
+# the bracketed kernel's edge cases (bracket_cases): (sites, T, Gp, nq) with
+# random brackets, then inputs laid out off 16 bytes and group ids outside
+# [0, Gp)
+_CHUNK = 8 * 1024   # interp_kernel.BRACKETED_CHUNK
+BRACKET_SHAPES = ((2, 1, 3, 2), (3, 3, 14, 1), (3, 1001, 1, 49), (4, 1500, 14, 62), (5, 2049, 14, 63), (3, 3001, 14, 64), (2, 5003, 46, 64),
+                  (2, 4099, 46, 49), (3, _CHUNK, 14, 50), (2, 2 * _CHUNK, 14, 2), (2, _CHUNK + 3, 46, 63), (4, 777, 14, 1))
+BRACKET_CASES = tuple(f"nq={nq} Gp={gp} T={T}" for _, T, gp, nq in BRACKET_SHAPES) + (
+    "values 4 bytes off 16", "values 8 bytes off 16", "steps 4 bytes off 16", "group ids outside [0, Gp)",
+    "tables with +inf holes nq=50 Gp=14", "tables with +inf holes nq=64 Gp=46")
+
+
+def bracket_cases(device, only=None):
+    """The bracketed kernel's edges, {label: its arguments} (the labels
+    ``BRACKET_CASES``, or only the one named), all with the search's edges
+    (``bracket_inputs(..., extra=True)``) and random brackets: every search
+    depth and its boundary (nq 1, 2, 49, 62, 63, 64), Gp 1, 14 and 46, rows of
+    one value, shorter than a chunk, of a length not a multiple of 4 and of
+    exactly one and two chunks (``interp_kernel.BRACKETED_CHUNK``), values 4
+    and 8 bytes off a 16-byte boundary, step arrays off 16 bytes, and group
+    ids outside [0, Gp), and tables with +inf holes (:func:`holey_tables`)."""
+    assert interp_kernel.BRACKETED_CHUNK == _CHUNK
+    cases = {}
+    for (B, T, gp, nq), label in zip(BRACKET_SHAPES, BRACKET_CASES):
+        if only in (None, label):
+            cases[label] = bracket_inputs(B, gp, nq, *random_brackets(T, gp, seed=T + gp), seed=B + T + nq, device=device, extra=True)
+    if only is None or "off 16" in only:
+        args = bracket_inputs(3, 14, 50, *random_brackets(4001, 14, seed=5), seed=6, device=device, extra=True)
+        cases["values 4 bytes off 16"] = (off_16(args[0]), *args[1:])
+        cases["values 8 bytes off 16"] = (off_16(args[0], 2), *args[1:])
+        cases["steps 4 bytes off 16"] = (*args[:4], *(off_16(a) for a in args[4:]))
+    if only in (None, "group ids outside [0, Gp)"):
+        v, xs, ys, nv, g0, g1, w = (a.clone() for a in bracket_inputs(5, 14, 50, *random_brackets(3001, 14, seed=1), seed=2, device=device, extra=True))
+        g0[::97], g1[5::89], g0[7::101] = 14, -1, -3
+        cases["group ids outside [0, Gp)"] = (v, xs, ys, nv, g0, g1, w)
+    for gp, nq in ((14, 50), (46, 64)):
+        label = f"tables with +inf holes nq={nq} Gp={gp}"
+        if only in (None, label):
+            v, _, _, _, g0, g1, w = bracket_inputs(4, gp, nq, *random_brackets(5001, gp, seed=nq), seed=nq + gp, device=device, extra=True)
+            cases[label] = (v, *(a.to(device) for a in holey_tables(4, gp, nq, seed=gp)), g0, g1, w)
+    return cases if only is None else {only: cases[only]}
+
+
 def fma_inputs(n, dtype, seed=0, device="cpu"):
     """Three [n] operands of ``fma`` with its edge cases: scales from 2^-20
     to 2^20, +-0, +-inf, NaN, subnormals, and products that cancel against
@@ -960,6 +1041,50 @@ def _hold(err, key, label, kernel, twin, *args):
     """``kernel(*args)`` against ``twin(*args)`` (:func:`_compare`), the
     largest difference so far kept under ``err[key]``."""
     err[key] = max(err.get(key, 0.0), _compare(label, kernel(*args), twin(*args)))
+
+
+def _hold_bits(err, key, label, kernel, twin, *args):
+    """``kernel(*args)`` against ``twin(*args)`` by bit pattern
+    (:func:`_compare_bits`), the largest difference so far kept under
+    ``err[key]``."""
+    err[key] = max(err.get(key, 0.0), _compare_bits(label, kernel(*args), twin(*args)))
+
+
+def zero_tie_rows(B, T, seed=0, every=7):
+    """[B, T] f32 rows half +0.0 and half -0.0 in random order, every
+    ``every``-th value N(0, 1), 1 % NaN: the value sorts' ±0.0 ties (ROADMAP
+    C29), which a sort keeps in their input order only if it is stable."""
+    rng = np.random.default_rng(seed)
+    x = np.where(rng.random((B, T)) < 0.5, 0.0, -0.0).astype(np.float32)
+    x[:, ::every] = rng.normal(0, 1, x[:, ::every].shape)
+    x[rng.random((B, T)) < 0.01] = np.nan
+    return x
+
+
+def dry_day_problem(n_sites, n_years, seed=14):
+    """The headline shape with pr-like data: gamma values, 30 % (ref) and 45 %
+    (hist, sim) of the days ±0.0 in random order, so that quantiles, ranks
+    and (``kind="*"``) factors meet the sorts' ±0.0 ties."""
+    t = xp.date_range("2000-01-01", periods=365 * n_years, freq="D", calendar="noleap")
+    rng = np.random.default_rng(seed)
+    data = []
+    for frac in (0.3, 0.45, 0.45):
+        x = rng.gamma(2.0, 2.0, (n_sites, len(t))).astype(np.float32)
+        dry = rng.random(x.shape) < frac
+        x[dry] = np.where(rng.random(int(dry.sum())) < 0.5, 0.0, -0.0)
+        data.append(x)
+    return t, data
+
+
+def _unstable_nan_quantile(x, quantiles, axis=-1, alpha=1.0, beta=1.0, fused=True):
+    """``ops/quantile.py:nan_quantile`` as it was before ROADMAP C29's repair
+    (an unstable ``torch.sort``), bound in its place to time the headline
+    step before the repair."""
+    from xsdba_tpu_torch.ops import quantile as quant
+
+    x = torch.movedim(quant.as_tensor(x), axis, -1)
+    q = quant.as_tensor(quantiles, dtype=x.dtype, device=x.device)
+    return quant._quantile_on_sorted(torch.sort(x, dim=-1).values, (~torch.isnan(x)).sum(dim=-1), q, alpha, beta, fused=fused)
 
 
 def _compare_sort(label, key, lab):
@@ -1493,6 +1618,64 @@ def config5_phase(dev, ours):
     return block_counts
 
 
+def _signs(got, want):
+    """Values of ``got`` that differ from ``want`` by bit pattern (any NaN
+    equal to any NaN), counted on the CPU."""
+    got, want = got.cpu(), want.cpu()
+    both_nan = torch.isnan(got) & torch.isnan(want)
+    return int(((_bits(got) != _bits(want)) & ~both_nan).sum())
+
+
+def c29_phase(dev, gi):
+    """The headline core (both kinds), ``nan_quantile`` and ``vecquantiles``
+    on ±0.0-tie rows on the card against the CPU port by bit pattern; the
+    same with the parent's unstable value sort, counted but not held.
+    Returns {check: values checked}."""
+    from xsdba_tpu_torch.models import _algos
+    from xsdba_tpu_torch.ops import quantile as quant
+
+    t, (ref_np, hist_np, sim_np) = dry_day_problem(N_SITES, N_YEARS)
+    q = equally_spaced_nodes(NQ)
+    cut = slice(0, CHECK_SITES)
+    out = {}
+
+    def core(device, kind, n=None):
+        idx = [torch.as_tensor(a, device=device) for a in (gi.gather_idx, gi.group_idx, gi.scatter_slot)]
+        return qdm_train_adjust_core(*(torch.from_numpy(a[:n]).to(device) for a in (ref_np, hist_np, sim_np)), *idx, device_brackets(gi, "linear", device),
+                                     torch.as_tensor(q, dtype=torch.float32, device=device), kind=kind, interp="linear", extrapolation="constant")
+
+    for kind in ("+", "*"):
+        got = core(dev, kind)
+        want = core("cpu", kind, CHECK_SITES)
+        stable_quantile = _algos.nan_quantile
+        _algos.nan_quantile = _unstable_nan_quantile
+        try:
+            before = _signs(core(dev, kind)[cut], want)
+        finally:
+            _algos.nan_quantile = stable_quantile
+        cpu = got[cut].cpu()
+        zeros, negz = int((cpu == 0).sum()), int(((cpu == 0) & torch.signbit(cpu)).sum())
+        infs, nans = int(torch.isinf(cpu).sum()), int(torch.isnan(cpu).sum())
+        print(f"[c29] headline core kind={kind} on ±0.0-tie rows {tuple(got.shape)}: first {CHECK_SITES} sites against the CPU port, "
+              f"{zeros} zeros ({negz} of them -0.0), {infs} infinities, {nans} NaN; the parent's unstable sort on the card: {before} values differ", flush=True)
+        _compare_bits(f"C29 headline core kind={kind}, first {CHECK_SITES} sites vs the CPU port", got[cut].cpu(), want)
+        out[f"core {kind}"] = want.numel()
+    qs = torch.linspace(0, 1, 11, dtype=torch.float32)
+    for label, shape in (("short rows", (4096, 30)), ("group rows", (N_SITES * 12, 4650))):
+        x = torch.from_numpy(zero_tie_rows(*shape, seed=shape[1]))
+        ranks = qs[torch.from_numpy(np.random.default_rng(shape[0]).integers(0, 11, shape[0]))]
+        for name, fn, args in (("nan_quantile", quant.nan_quantile, (qs,)), ("vecquantiles", quant.vecquantiles, (ranks,))):
+            want = fn(x, *args)
+            got = fn(x.to(dev), *(a.to(dev) for a in args))
+            before = torch.sort(x.to(dev), dim=-1).values.cpu()
+            moved = _signs(before, torch.sort(x, dim=-1, stable=True).values)
+            print(f"[c29] {name} on {label} {shape}: {int(((want == 0) & torch.signbit(want)).sum())} of {want.numel()} results -0.0; "
+                  f"the card's unstable sort puts {moved} sorted values' bits elsewhere than the stable one", flush=True)
+            _compare_bits(f"C29 {name}, {label}, vs the CPU port", got.cpu(), want)
+            out[f"{name} {label}"] = want.numel()
+    return out
+
+
 # phase 5g: the cubic lookup, period stacking, additive space, the spectral
 # filter and the public lookup at full width
 MW_WINDOW, MW_STRIDE, MW_TRAIN_YEARS, MW_CHECK = 30, 10, 30, 4
@@ -1916,23 +2099,38 @@ def main() -> int:
     err["K1 nearest"] = max(err["K1 nearest"], _compare("K1 nearest lookup, values off 16 bytes", k1[0](off, *edges[1:], "nearest"), k1[1](*edges, "nearest")))
     del off, ve, edges, rows
 
-    # the bracketed lookup at the headline shape with the monthly brackets
-    # (also with the search's edges), and at a small odd shape with random
-    # brackets (w = 0 and 1, g0 == g1)
+    # the bracketed lookup by bit pattern (any NaN equal to any NaN): at the
+    # headline shape with the monthly brackets (also with the search's
+    # edges), at a small odd shape with random brackets (w = 0 and 1,
+    # g0 == g1), and on the redesign's edges (bracket_cases): nq 1, 2, 49,
+    # 62, 63 and 64 (each search depth and its boundary), Gp 1, 14 and 46, rows
+    # shorter than a chunk, of a length not a multiple of 4, of exactly one
+    # and two chunks, values 4 and 8 bytes off 16, step arrays off 16 bytes,
+    # and group ids outside [0, Gp)
     kbr = (interp_kernel.interp_bracketed, interp_kernel.interp_bracketed_reference)
     mb = gi.bracket_partitions("linear")
     bargs = bracket_inputs(N_SITES, Gp, NQ, mb["g0"], mb["g1"], mb["w"], seed=4, device=dev)
     bracketed = lambda: interp_kernel.interp_bracketed(*bargs)  # noqa: E731
     bracketed_twin = lambda: interp_kernel.interp_bracketed_reference(*bargs)  # noqa: E731
-    _hold(err, "bracketed", f"bracketed lookup, monthly brackets nq={NQ} Gp={Gp}", *kbr, *bargs)
-    _hold(err, "bracketed", f"bracketed lookup, monthly brackets, the search's edges nq={NQ}", *kbr,
-          *bracket_inputs(16, Gp, NQ, mb["g0"], mb["g1"], mb["w"], seed=9, device=dev, extra=True))
+    _hold_bits(err, "bracketed", f"bracketed lookup, monthly brackets nq={NQ} Gp={Gp}", *kbr, *bargs)
+    _hold_bits(err, "bracketed", f"bracketed lookup, monthly brackets, the search's edges nq={NQ}", *kbr,
+               *bracket_inputs(16, Gp, NQ, mb["g0"], mb["g1"], mb["w"], seed=9, device=dev, extra=True))
     rng = np.random.default_rng(6)
     odd_w = rng.random(1001)
     odd_w[::5], odd_w[1::5] = 0.0, 1.0
     odd_g0 = rng.integers(0, 5, 1001)
     odd_g1 = np.where(rng.random(1001) < 0.2, odd_g0, rng.integers(0, 5, 1001))
-    _hold(err, "bracketed", "bracketed lookup, random brackets nq=7 Gp=5", *kbr, *bracket_inputs(3, 5, 7, odd_g0, odd_g1, odd_w, seed=7, device=dev, extra=True))
+    _hold_bits(err, "bracketed", "bracketed lookup, random brackets nq=7 Gp=5", *kbr, *bracket_inputs(3, 5, 7, odd_g0, odd_g1, odd_w, seed=7, device=dev, extra=True))
+    for label, args in bracket_cases(dev).items():
+        _hold_bits(err, "bracketed", f"bracketed lookup, {label}", *kbr, *args)
+    # the row lookups on tables with +inf holes (ROADMAP C31): counted, not held
+    hxs, hys, hnv = (a.to(dev) for a in holey_tables(N_SITES, Gp, NQ, seed=15))
+    for label, kernel, twin in (("K1", *k1), ("K1 nearest", lambda *a: k1[0](*a, "nearest"), lambda *a: k1[1](*a, "nearest"))):
+        got, want = kernel(v, hxs, hys, hnv), twin(v, hxs, hys, hnv)
+        torch.cuda.synchronize()
+        print(f"[kernel] {label} on tables with +inf holes {tuple(v.shape)} (ROADMAP C31, not held): {_signs(got, want)} of {got.numel()} "
+              "values differ from the twin by bit pattern", flush=True)
+    del hxs, hys, hnv
 
     # the fused multiply-add against its emulation by bit pattern (any NaN
     # equal to any NaN) on its edge cases, each layout class its kernel
@@ -2097,6 +2295,15 @@ def main() -> int:
     print(f"[main path] QDM train+adjust {tuple(scen.shape)} f32 on {dev}: finite, launches {qdm_counts}, "
           f"{api_s:.3f} s first call; first {CHECK_SITES} sites vs CPU port max abs diff {cpu_err:.3g}", flush=True)
     del scen
+
+    # 4d. signs of zero (ROADMAP C29): pr-like rows with ±0.0 ties through
+    # the headline core on the card, both kinds, and through nan_quantile
+    # and vecquantiles on short rows (a sort in registers) and on the
+    # core's group rows (a segmented radix sort), each held by bit pattern
+    # (any NaN equal to any NaN) against the port's CPU result on the same
+    # rows; the parent's unstable sort on the card is counted beside it
+    zero_checks = c29_phase(dev, gi)
+    print(f"[c29] every sign-of-zero check held: {zero_checks}", flush=True)
 
     # 4b. the same data with one group: the adjust's lookup is K2
     torch.cuda.synchronize()
@@ -2429,6 +2636,22 @@ def main() -> int:
     fused = _summary(_time_ms(qdm_step))
     print(f"[time] fused qdm_train_adjust_core {N_SITES} sites x {N_YEARS} yr: {N_SITES * N_YEARS / (fused['median_ms'] / 1e3):,.0f} "
           f"gridpoint-years/s ({_fmt(fused)})", flush=True)
+
+    # the same step before ROADMAP C29's repair (the parent's unstable value
+    # sort bound in place of nan_quantile) and after it, in turns
+    from xsdba_tpu_torch.models import _algos as algos
+
+    def qdm_step_unstable():
+        stable_quantile = algos.nan_quantile
+        algos.nan_quantile = _unstable_nan_quantile
+        try:
+            return qdm_step()
+        finally:
+            algos.nan_quantile = stable_quantile
+
+    c29_turns = _steps_in_turns({"unstable sort (before C29)": qdm_step_unstable, "stable sort": qdm_step}, reps=7)
+    print(f"[time] fused QDM step in turns: before C29 (unstable value sort) {_fmt(c29_turns['unstable sort (before C29)'])}; "
+          f"stable value sort {_fmt(c29_turns['stable sort'])} [{smi}]", flush=True)
     # phase 5h's timed: the host clock around each call and a synchronize on its output's device
     timed_s, _ = profiling.timed(qdm_step, reps=5, warmup=2)
     timed_ms = timed_s * 1e3

@@ -19,14 +19,17 @@ import torch
 
 import xsdba_tpu_torch as xp
 from chip_smoke import (
+    BRACKET_CASES,
     FLIP_RTOL,
     LOESS_RTOL,
     SeededDraws,
+    bracket_cases,
     bracket_inputs,
     config2_adjust,
     config2_train,
     dqm_doy_adjust,
     dqm_doy_train,
+    dry_day_problem,
     emit_edge_operands,
     emit_operands,
     emit_overflows,
@@ -43,6 +46,7 @@ from chip_smoke import (
     run_windowed_path,
     sort_inputs,
     wet_day_rows,
+    zero_tie_rows,
 )
 from xsdba_tpu_torch.ops import interp, merge, selquant, sort
 from xsdba_tpu_torch.ops.correction import equally_spaced_nodes
@@ -571,6 +575,67 @@ def test_grouped_lookup_takes_the_brackets_steps_as_they_are(cuda):
         torch.cuda.synchronize()
         assert (k.launches_bracketed, k.launches) == (1, 0)
         assert _nan_equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("label", BRACKET_CASES)
+def test_bracketed_kernel_edges_by_bit_pattern(cuda, label):
+    """The redesigned kernel on its edges (``chip_smoke.bracket_cases``):
+    every search depth and its boundary (nq 1, 2, 49, 62, 63, 64), Gp 1, 14
+    and 46, rows shorter than a chunk, not a multiple of 4 long and exactly one
+    and two chunks long, inputs off 16 bytes, group ids outside [0, Gp), with
+    the search's edges and random brackets (g0 == g1, w of 0 and 1): one
+    launch, the twin's bits (any NaN equal to any NaN)."""
+    args = bracket_cases(cuda, only=label)[label]
+    before = k.launches_bracketed
+    got = k.interp_bracketed(*args)
+    torch.cuda.synchronize()
+    assert k.launches_bracketed == before + 1 and got.is_cuda
+    assert _same_bits_or_nan(got, k.interp_bracketed_reference(*args))
+
+
+def test_bracketed_kernel_on_monthly_brackets_by_bit_pattern(cuda):
+    """The headline's monthly brackets over 150 years on 16 sites, with the
+    search's edges: the twin's bits."""
+    t, _ = example_problem(1, 150)
+    b = xp.Grouper("time.month").indexes(t).bracket_partitions("linear")
+    args = bracket_inputs(16, 14, 50, b["g0"], b["g1"], b["w"], seed=9, device=cuda, extra=True)
+    got = k.interp_bracketed(*args)
+    torch.cuda.synchronize()
+    assert _same_bits_or_nan(got, k.interp_bracketed_reference(*args))
+
+
+@pytest.mark.parametrize("kind", ["+", "*"])
+def test_headline_core_keeps_the_sign_of_zero(cuda, kind):
+    """ROADMAP C29 on the card: pr-like data with ±0.0 ties through the fused
+    QDM core equals the CPU port by bit pattern (the value sorts are stable
+    on both devices)."""
+    from xsdba_tpu_torch.models._algos import qdm_train_adjust_core
+    from xsdba_tpu_torch.models._wrap import device_brackets
+
+    t, data = dry_day_problem(4, 12)
+    gi = xp.Grouper("time.month").indexes(t)
+    q = equally_spaced_nodes(50)
+
+    def core(device):
+        idx = [torch.as_tensor(a, device=device) for a in (gi.gather_idx, gi.group_idx, gi.scatter_slot)]
+        return qdm_train_adjust_core(*(torch.from_numpy(a).to(device) for a in data), *idx, device_brackets(gi, "linear", device),
+                                     torch.as_tensor(q, dtype=torch.float32, device=device), kind=kind, interp="linear", extrapolation="constant")
+
+    assert _same_bits_or_nan(core(cuda).cpu(), core("cpu"))
+
+
+@pytest.mark.parametrize("T", [30, 4650])
+def test_quantiles_keep_the_sign_of_zero(cuda, T):
+    """``nan_quantile`` and ``vecquantiles`` on rows half ±0.0 (rows of 30 sort
+    in registers on the card, rows of 4650 by a segmented radix sort): the
+    CPU port's bits."""
+    from xsdba_tpu_torch.ops import quantile as quant
+
+    x = torch.from_numpy(zero_tie_rows(512, T, seed=T))
+    qs = torch.linspace(0, 1, 11, dtype=torch.float32)
+    ranks = qs[torch.from_numpy(np.random.default_rng(T).integers(0, 11, 512))]
+    assert _same_bits_or_nan(quant.nan_quantile(x.to(cuda), qs.to(cuda)).cpu(), quant.nan_quantile(x, qs))
+    assert _same_bits_or_nan(quant.vecquantiles(x.to(cuda), ranks.to(cuda)).cpu(), quant.vecquantiles(x, ranks))
 
 
 def test_bracketed_wrapper_raises_over_its_budget(cuda):

@@ -50,13 +50,8 @@
 //   each warp with its own table) and 4-byte accesses, a value a lane a
 //   step: on the windowed adjust's 150-value rows four values a lane would
 //   leave 4 lanes in 10 idle.
-// - The bracketed entry holds all of one site's tables in shared memory
-//   (1056 bytes a table: 14.4 KB at the monthly headline) and streams an
-//   8192-value tile of the site's time axis through them.  A warp's lanes
-//   probe the tables of several groups at the same index, so the tables
-//   start an odd number of words (nodes) and of 8-byte pairs apart and one
-//   index of several tables falls into several banks.  The group ids and
-//   the weight of a time step come from L2 (all sites share them).
+// - The bracketed entry has a layout and a search of its own, below
+//   `interp_rows_kernel`.
 // Device times on an NVIDIA H100 80GB HBM3 (700 W limit) are in PERF.md,
 // section 6.
 //
@@ -76,6 +71,7 @@
 #include <math.h>
 #include <stdint.h>
 
+
 #include "device_guard.cuh"
 
 namespace {
@@ -87,13 +83,10 @@ constexpr int kThreads = 256;
 constexpr int kTile = 4096;              // values a block streams along a long row
 constexpr int kShortRow = 4 * kThreads;  // shorter rows take one warp each
 constexpr int kWarpRows = kThreads / 32;
-constexpr int kBracketTile = 8192;       // time steps a block of the bracketed entry serves
-constexpr int kBracketSmem = 48 * 1024;
-// a site's tables in the bracketed kernel start an odd number of words
-// (probe nodes) and of pairs apart: see the header
-constexpr int kProbeStride = kProbes + 1;
-constexpr int kPairStride = kPairs;
-constexpr int kTableBytes = 16 + 8 * kPairStride + 4 * kProbeStride + 4;  // constants, pairs, nodes, count
+// the bracketed route admits a site's tables while they fit 48 KB at 1056
+// bytes a table (46 tables): ops/cuda/interp_kernel.py:bracketed_fits
+constexpr int kBracketAdmitSmem = 48 * 1024;
+constexpr int kBracketAdmitTable = 1056;
 
 // One table in shared memory, evaluated at val: x[0 .. kProbes) its nodes
 // for the probes (NaN past nq); xy[0 .. nq] its (x, y) pairs, the last one
@@ -198,57 +191,278 @@ interp_rows_kernel(const float* __restrict__ v, const float* __restrict__ xs, co
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+// ---------------------------------------------------------------------------
+// The bracketed entry.  A block serves one site over kBrChunk steps of its
+// time axis.  Consecutive lanes take consecutive time steps, so a warp's
+// values fall in at most three bracket pairs and its probes mostly in one
+// table at a time, and every load and store of v, out and the steps'
+// (g0, g1, w) is one coalesced 128-byte access a warp.  A thread looks up
+// kSteps values a round, kBrThreads steps apart, in both their tables: 2
+// kSteps independent searches, interleaved level by level; the next
+// round's operands are loaded before this round's lookups.  The site's
+// tables are laid out once, at staging, for a search and one load:
+// - the search nodes in breadth-first (Eytzinger) order, 2^kDepth - 1
+//   slots: the nq nodes by value, a sentinel, the smallest float above
+//   x[last] (the last valid node; none if that is +inf or NaN), inserted
+//   after the nodes <= x[last], then NaN.  A descent of kDepth probes (node
+//   i's children at 2i + 1 and 2i + 2) ends at 2^kDepth - 1 + c, c the
+//   count of those nodes <= v: NaN compares false, so c is `lookup`'s count
+//   on every input, plus one where v lies above x[last].  The nodes come
+//   ascending (valid first, +inf / NaN tail) but for +inf holes where a
+//   quantile-trained table has a NaN factor inside (the grouped adjust
+//   lays such tables out uncompacted); a block with such a table ranks its
+//   nodes by value first, and the count, as in `lookup`'s count loop, is by
+//   value while the segment below is by position.  A level's nodes are
+//   adjacent, so the probes of lanes that share a table fall in distinct
+//   banks; tables start an odd number of words apart.  kDepth is 6 for
+//   nq <= 62 and 7 above.  The descent keeps the probed node's shared-
+//   memory address a: the children of a are 2a + k4 and 2a + k4 + 4 with
+//   k4 = 4 - (the table's address), so a level is a load, a comparison, a
+//   select and a multiply-add;
+// - a 16-byte record per count c = 0 .. nq + 1, (x0, y0, dx, dy), found at
+//   4 a + a table constant.  Inside the table it is the segment that
+//   `lookup` interpolates at that count, k = min(max(c - 1, 0),
+//   max(nv - 2, 0)), dx = x[k + 1] - x[k] and dy = y1 - y[k] with the
+//   single-node guard, the roundings `lookup` makes at every call.  Below
+//   x[0] (at most as many nodes counted as lie below it) and above x[last]
+//   (the sentinel counted) it is (0, y[0] or y[last], 0, -0): its
+//   interpolation fma(+0, -0, y) is y bit for bit, the constant
+//   extrapolation.  An empty table's records carry y0 = NaN, so every value
+//   gives NaN.
+// A lookup is then kDepth probes, one record load, and `lookup`'s division
+// (behind the same condition: dividing 0 / 1 in its place, branch free,
+// measured slower on the H100) and fused interpolation; the NaN-value and
+// group-outside-[0, gp) rules apply once a value (either gives NaN through
+// the blend).  The staging (about 15 KB a site at the monthly headline) is
+// repeated once a chunk; the blocks of a wave overlap it with each other's
+// lookups.  scripts/probe_bracketed.py splits the kernel's time.
+constexpr int kBrThreads = 256;
+constexpr int kBrSteps = 2;         // values a thread looks up a round
+constexpr int kBrChunk = 8 * 1024;  // steps a block serves
+
+template <int kDepth>
+struct Eytzinger {
+  static constexpr int kSlots = (1 << kDepth) - 1;
+  static constexpr int kStride = kSlots + 2;  // words between tables: odd
+};
+
+// nq nodes and the sentinel in 2^kDepth - 1 slots
+__host__ __device__ constexpr int bracketed_depth(int nq) { return nq + 1 <= 63 ? 6 : 7; }
+
+// shared memory of one table: nq + 2 records, its thresholds and the nodes
+__host__ __device__ inline int bracketed_table_bytes(int nq) {
+  return 16 * (nq + 2) + 16 + 4 * (bracketed_depth(nq) == 6 ? Eytzinger<6>::kStride : Eytzinger<7>::kStride);
+}
+
+// shared-memory loads at 32-bit shared addresses
+__device__ __forceinline__ float lds1(unsigned a) {
+  float x;
+  asm volatile("ld.shared.f32 %0, [%1];" : "=f"(x) : "r"(a));
+  return x;
+}
+__device__ __forceinline__ float4 lds4(unsigned a) {
+  float4 x;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];" : "=f"(x.x), "=f"(x.y), "=f"(x.z), "=f"(x.w) : "r"(a));
+  return x;
+}
+
+// the nodes' order for the search: by value, NaN after every number
+__device__ __forceinline__ bool sorts_before(float a, float b) { return a < b || (!isnan(a) && isnan(b)); }
+__device__ __forceinline__ bool same_key(float a, float b) { return a == b || (isnan(a) && isnan(b)); }
+
+// the interpolation of `lookup` given the segment record s; `finite` is
+// isfinite(val).  The division stays behind its condition, as in `lookup`:
+// a branch that most warps take whole measured faster on the H100 than
+// dividing 0 / 1 in its place.
+__device__ __forceinline__ float seg_value(float val, bool finite, float4 s) {
+  float f = 0.0f;
+  if (s.z > 0.0f && finite) f = __fdiv_rn(__fsub_rn(val, s.x), s.z);
+  if (!isfinite(f)) f = 0.0f;
+  return __fmaf_rn(f, s.w, s.y);
+}
+
+// the operands of kSteps time steps kBrThreads apart from t: the two
+// groups, the weight and the value (zeros past t_hi)
+template <int kSteps>
+struct StepOperands {
+  int a[kSteps], b[kSteps];
+  float w[kSteps], v[kSteps];
+  __device__ __forceinline__ void load(const int* __restrict__ g0, const int* __restrict__ g1, const float* __restrict__ wt,
+                                       const float* __restrict__ vrow, int t, int t_hi) {
+#pragma unroll
+    for (int r = 0; r < kSteps; ++r) {
+      const int tr = t + r * kBrThreads;
+      const bool in = tr < t_hi;
+      a[r] = in ? g0[tr] : 0;
+      b[r] = in ? g1[tr] : 0;
+      w[r] = in ? wt[tr] : 0.0f;
+      v[r] = in ? vrow[tr] : 0.0f;
+    }
+  }
+};
+
+template <int kDepth, int kSteps>
+__global__ void __launch_bounds__(kBrThreads)
 interp_bracketed_kernel(const float* __restrict__ v, const float* __restrict__ xs, const float* __restrict__ ys,
                         const int* __restrict__ nvalid, const int* __restrict__ g0, const int* __restrict__ g1,
-                        const float* __restrict__ w, float* __restrict__ out, int T, int gp, int nq, int tiles,
-                        bool vec) {
+                        const float* __restrict__ w, float* __restrict__ out, int T, int gp, int nq, int chunks,
+                        int chunk_len) {
+  using E = Eytzinger<kDepth>;
+  constexpr int kChains = 2 * kSteps;
   extern __shared__ float4 smem[];
-  float4* edge = smem;                                            // [gp]
-  float2* sxy = reinterpret_cast<float2*>(edge + gp);             // [gp][kPairStride]
-  float* sx = reinterpret_cast<float*>(sxy + gp * kPairStride);   // [gp][kProbeStride]
-  int* snv = reinterpret_cast<int*>(sx + gp * kProbeStride);      // [gp]
-  const long long site = blockIdx.x / tiles;
-  const int tile = blockIdx.x % tiles;
-  const float* sxs = xs + site * gp * nq;
-  const float* sys = ys + site * gp * nq;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int g = warp; g < gp; g += kThreads / 32) {
-    stage_table(sxs + g * nq, sys + g * nq, nq, sx + g * kProbeStride, sxy + g * kPairStride, lane, 32);
-    if (lane == 0) {
-      const int nv = nvalid[site * gp + g];
-      snv[g] = nv;
-      edge[g] = table_edge(sxs + g * nq, sys + g * nq, nq, nv);
+  const int nrec = nq + 2;
+  float4* rec = smem;                                       // [gp][nrec]
+  int4* meta = reinterpret_cast<int4*>(rec + gp * nrec);    // [gp]: below, upto, sentinel
+  float* ey = reinterpret_cast<float*>(meta + gp);          // [gp][E::kStride]
+  const long long site = blockIdx.x / chunks;
+  const int t_lo = static_cast<int>(blockIdx.x % chunks) * chunk_len;
+  const int t_hi = min(t_lo + chunk_len, T);
+  const float* vrow = v + site * T;
+  float* orow = out + site * T;
+  const float* txs = xs + site * gp * nq;
+  const float* tys = ys + site * gp * nq;
+  const int* tnv = nvalid + site * gp;
+
+  // a round's operands are loaded a round ahead of its lookups, the first
+  // round's while the tables are staged
+  StepOperands<kSteps> cur;
+  int t = t_lo + threadIdx.x;
+  cur.load(g0, g1, w, vrow, t, t_hi);
+
+  // 1. the nodes' raw values and whether any table is out of order (NaN
+  //    sorts last): the rows the grouped adjust gets are ascending with a
+  //    +inf / NaN tail, but a quantile-trained table with a NaN factor
+  //    inside has a +inf hole there, where `lookup`'s count loop counts
+  //    nodes by value and takes the segment by position.  With them, the
+  //    two extrapolation thresholds as counts of nodes, a warp a table: a
+  //    value is below x[0] iff at most `below` nodes are <= it, and above
+  //    x[last] iff it is at or above the sentinel, the smallest float above
+  //    x[last], which sorts after the `upto` nodes <= x[last]
+  bool unsorted = false;
+  for (int item = threadIdx.x; item < gp * nq; item += kBrThreads) {
+    const int tb = item / nq, k = item - tb * nq;
+    const float x = txs[item];
+    ey[tb * E::kStride + k] = x;
+    if (k + 1 < nq) unsorted |= sorts_before(txs[item + 1], x);
+  }
+  for (int tb = threadIdx.x / 32; tb < gp; tb += kBrThreads / 32) {
+    const int lane = threadIdx.x % 32;
+    const float* x = txs + tb * nq;
+    const float x_first = x[0], x_last = x[min(max(tnv[tb] - 1, 0), nq - 1)];
+    int below = 0, upto = 0;
+    for (int j = lane; j - lane < nq; j += 32) {  // nq <= 64: two rounds
+      const float xj = j < nq ? x[j] : NAN;
+      below += __popc(__ballot_sync(0xffffffffu, xj < x_first));
+      upto += __popc(__ballot_sync(0xffffffffu, xj <= x_last));
     }
+    // no sentinel where nothing lies above x[last] (+inf or NaN)
+    if (lane == 0) meta[tb] = make_int4(isnan(x_first) ? -1 : below, upto, x_last < INFINITY, 0);
+  }
+  const bool permuted = __syncthreads_or(unsorted);
+  // 2. where a table is out of order: each table's nodes by value (stable,
+  //    NaN last), inv[tb][rank] = position, kept in the records' space
+  int* inv = reinterpret_cast<int*>(rec);  // [gp][4 nrec]
+  if (permuted) {
+    for (int item = threadIdx.x; item < gp * nq; item += kBrThreads) {
+      const int tb = item / nq, k = item - tb * nq;
+      const float* x = ey + tb * E::kStride;
+      const float xk = x[k];
+      int rank = 0;
+      for (int j = 0; j < nq; ++j) rank += sorts_before(x[j], xk) || (j < k && same_key(x[j], xk));
+      inv[tb * 4 * nrec + rank] = k;
+    }
+    __syncthreads();
+  }
+  // 3. the search nodes in breadth-first order: by value, the sentinel
+  //    inserted at rank `upto`, NaN past them
+  for (int item = threadIdx.x; item < gp * E::kSlots; item += kBrThreads) {
+    const int tb = item / E::kSlots, i = item - tb * E::kSlots;
+    const int l = 31 - __clz(i + 1);                                        // level of slot i
+    int r = ((2 * (i + 1 - (1 << l)) + 1) << (kDepth - 1 - l)) - 1;         // its rank
+    const int4 m = meta[tb];
+    const float* x = txs + tb * nq;
+    float node = NAN;
+    if (m.z && r == m.y) {
+      node = nextafterf(x[min(max(tnv[tb] - 1, 0), nq - 1)], INFINITY);
+    } else {
+      if (m.z && r > m.y) --r;
+      if (r < nq) node = x[permuted ? inv[tb * 4 * nrec + r] : r];
+    }
+    ey[tb * E::kStride + i] = node;
+  }
+  if (permuted) __syncthreads();  // the records overwrite inv
+  // 4. the record of each count c of search nodes <= v
+  for (int item = threadIdx.x; item < gp * nrec; item += kBrThreads) {
+    const int tb = item / nrec, c = item - tb * nrec;
+    const float* x = txs + tb * nq;
+    const float* y = tys + tb * nq;
+    const int nv = tnv[tb];
+    const int4 m = meta[tb];
+    float4 r;
+    if ((m.z && c > m.y) || c <= m.x) {
+      // above x[last] (the sentinel counted), else below x[0]: the constant
+      // extrapolation, fma(+0, -0, y) = y
+      const float y_edge = m.z && c > m.y ? y[min(max(nv - 1, 0), nq - 1)] : y[0];
+      r = make_float4(0.0f, nv == 0 ? NAN : y_edge, 0.0f, -0.0f);
+    } else {
+      const int k = min(max(c - 1, 0), max(nv - 2, 0));
+      const float x0 = x[k];
+      const float y0 = y[k];
+      const float x1 = k + 1 < nq ? x[k + 1] : INFINITY;  // a bracket on the last node: the +inf pad
+      float y1 = k + 1 < nq ? y[k + 1] : y[nq - 1];
+      if (isnan(y1)) y1 = y0;  // single valid node: its pair is the NaN pad
+      r = make_float4(x0, nv == 0 ? NAN : y0, __fsub_rn(x1, x0), __fsub_rn(y1, y0));
+    }
+    rec[item] = r;
   }
   __syncthreads();
 
-  auto in_group = [&](float val, int grp) {
-    const int g = min(max(grp, 0), gp - 1);
-    const float r = lookup<false>(val, sx + g * kProbeStride, sxy + g * kPairStride, edge[g], snv[g]);
-    return g == grp ? r : NAN;  // no such group: no table
-  };
-  auto blended = [&](float val, int tstep) {
-    const float ww = w[tstep];
-    return __fmaf_rn(__fsub_rn(1.0f, ww), in_group(val, g0[tstep]), __fmul_rn(ww, in_group(val, g1[tstep])));
-  };
-
-  const int start = tile * kBracketTile;
-  const int stop = min(start + kBracketTile, T);
-  const long long base = site * T;
-  const long long lo = base + start;
-  const long long hi = base + stop;
-  const Split s(lo, hi, vec);
-  for (long long i = lo + threadIdx.x; i < s.alo; i += kThreads) out[i] = blended(v[i], static_cast<int>(i - base));
-  for (long long i = s.ahi + threadIdx.x; i < hi; i += kThreads) out[i] = blended(v[i], static_cast<int>(i - base));
-  const float4* v4 = reinterpret_cast<const float4*>(v + s.alo);
-  float4* o4 = reinterpret_cast<float4*>(out + s.alo);
-  const int n4 = static_cast<int>((s.ahi - s.alo) >> 2);
-  const int t0 = static_cast<int>(s.alo - base);
-  for (int j = threadIdx.x; j < n4; j += kThreads) {
-    const float4 a = v4[j];
-    const int ts = t0 + 4 * j;
-    o4[j] = make_float4(blended(a.x, ts), blended(a.y, ts + 1), blended(a.z, ts + 2), blended(a.w, ts + 3));
+  // shared addresses: table tb's nodes at ey_s + 4 kStride tb; the record of
+  // count c at rec_s + 16 (nrec tb + c), which the descent's last address
+  // a = ey_s + 4 kStride tb + 4 (kSlots + c) gives as 4 a + rec_c + rec_d tb
+  const unsigned ey_s = static_cast<unsigned>(__cvta_generic_to_shared(ey));
+  const unsigned rec_c = static_cast<unsigned>(__cvta_generic_to_shared(rec)) - 4u * ey_s - 16u * E::kSlots;
+  const unsigned rec_d = 16u * static_cast<unsigned>(nrec) - 16u * E::kStride;
+  StepOperands<kSteps> nxt;
+  for (; t < t_hi; t += kSteps * kBrThreads) {
+    nxt.load(g0, g1, w, vrow, t + kSteps * kBrThreads, t_hi);
+    float val[kSteps], wt[kSteps];
+    bool bad[kSteps];
+    unsigned tb[kChains];
+#pragma unroll
+    for (int r = 0; r < kSteps; ++r) {
+      val[r] = cur.v[r];
+      wt[r] = cur.w[r];
+      // a group id outside [0, gp) has no table: NaN (table 0 is read)
+      bad[r] = static_cast<unsigned>(cur.a[r]) >= static_cast<unsigned>(gp) || static_cast<unsigned>(cur.b[r]) >= static_cast<unsigned>(gp);
+      tb[2 * r] = bad[r] ? 0u : static_cast<unsigned>(cur.a[r]);
+      tb[2 * r + 1] = bad[r] ? 0u : static_cast<unsigned>(cur.b[r]);
+    }
+    unsigned addr[kChains], k4[kChains], k8[kChains];
+#pragma unroll
+    for (int c = 0; c < kChains; ++c) {
+      addr[c] = ey_s + 4u * E::kStride * tb[c];
+      k4[c] = 4u - addr[c];
+      k8[c] = k4[c] + 4u;
+    }
+#pragma unroll
+    for (int l = 0; l < kDepth; ++l) {
+#pragma unroll
+      for (int c = 0; c < kChains; ++c) addr[c] = 2u * addr[c] + (lds1(addr[c]) <= val[c / 2] ? k8[c] : k4[c]);
+    }
+    float res[kChains];
+#pragma unroll
+    for (int c = 0; c < kChains; ++c) {
+      const float4 s = lds4(4u * addr[c] + rec_c + rec_d * tb[c]);
+      res[c] = seg_value(val[c / 2], isfinite(val[c / 2]), s);
+    }
+#pragma unroll
+    for (int r = 0; r < kSteps; ++r) {
+      float o = __fmaf_rn(__fsub_rn(1.0f, wt[r]), res[2 * r], __fmul_rn(wt[r], res[2 * r + 1]));
+      if (bad[r] || isnan(val[r])) o = NAN;
+      if (t + r * kBrThreads < t_hi) orow[t + r * kBrThreads] = o;
+    }
+    cur = nxt;
   }
 }
 
@@ -291,6 +505,25 @@ int launch_rows_by(int method, const void* v, const void* xs, const void* ys, co
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+template <int kDepth>
+int launch_bracketed(const void* v, const void* xs, const void* ys, const void* nvalid, const void* g0, const void* g1,
+                     const void* w, void* out, int sites, int t, int gp, int nq, void* stream) {
+  auto* kernel = interp_bracketed_kernel<kDepth, kBrSteps>;
+  const int smem = gp * bracketed_table_bytes(nq);
+  if (smem > 48 * 1024) {
+    const cudaError_t rc = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+  }
+  const int chunks = (t + kBrChunk - 1) / kBrChunk;
+  const long long blocks = static_cast<long long>(sites) * chunks;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  kernel<<<static_cast<unsigned>(blocks), kBrThreads, static_cast<size_t>(smem), static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(v), static_cast<const float*>(xs), static_cast<const float*>(ys),
+      static_cast<const int*>(nvalid), static_cast<const int*>(g0), static_cast<const int*>(g1),
+      static_cast<const float*>(w), static_cast<float*>(out), t, gp, nq, chunks, kBrChunk);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Every entry launches on `stream` of CUDA device `device` (leaving the
@@ -313,25 +546,17 @@ extern "C" int xsdba_interp_table_2d(const void* v, const void* xs, const void* 
 }
 
 // v/out [sites, t], xs/ys [sites, gp, nq], nvalid [sites, gp], g0/g1 [t]
-// int32, w [t]: out = fma(1 - w, table_g0(v), w * table_g1(v)).  Refuses
-// more tables a site than 48 KB of shared memory hold, 1056 bytes each
-// (ops/cuda/interp_kernel.py:bracketed_smem_bytes is the same count).
+// int32, w [t]: out = fma(1 - w, table_g0(v), w * table_g1(v)).  Admits at
+// most 46 tables a site, the route's rule (48 KB at 1056 bytes a table:
+// ops/cuda/interp_kernel.py:bracketed_fits is the same count).
 extern "C" int xsdba_interp_bracketed(const void* v, const void* xs, const void* ys, const void* nvalid,
                                       const void* g0, const void* g1, const void* w, void* out, int sites,
                                       int t, int gp, int nq, int device, void* stream) {
   if (sites < 0 || t < 0 || gp < 1 || nq < 1 || nq > kMaxNq) return static_cast<int>(cudaErrorInvalidValue);
   if (sites == 0 || t == 0) return 0;
-  if (gp > kBracketSmem / kTableBytes) return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = gp * kTableBytes;
-  const int tiles = (t + kBracketTile - 1) / kBracketTile;
-  const long long blocks = static_cast<long long>(sites) * tiles;
-  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  if (gp > kBracketAdmitSmem / kBracketAdmitTable) return static_cast<int>(cudaErrorInvalidValue);
   const xsdba::DeviceGuard guard(device);
   if (guard.status() != cudaSuccess) return static_cast<int>(guard.status());
-  interp_bracketed_kernel<<<static_cast<unsigned>(blocks), kThreads, static_cast<size_t>(smem),
-                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(v), static_cast<const float*>(xs), static_cast<const float*>(ys),
-      static_cast<const int*>(nvalid), static_cast<const int*>(g0), static_cast<const int*>(g1),
-      static_cast<const float*>(w), static_cast<float*>(out), t, gp, nq, tiles, aligned16(v, out));
-  return static_cast<int>(cudaGetLastError());
+  if (bracketed_depth(nq) == 6) return launch_bracketed<6>(v, xs, ys, nvalid, g0, g1, w, out, sites, t, gp, nq, stream);
+  return launch_bracketed<7>(v, xs, ys, nvalid, g0, g1, w, out, sites, t, gp, nq, stream);
 }

@@ -23,7 +23,7 @@ from ..ops.fitting import gpd_cdf, gpd_fit_ml, gpd_ppf
 from ..ops.interp import interp1d_table
 from ..ops.quantile import nan_quantile
 from ..utils.container import DataArray, Dataset
-from ..utils.tensor import as_tensor, nanmax, nanmin
+from ..utils.tensor import _check_leading, as_tensor, nanmax, nanmin
 from ..utils.units import convert_units_to
 from ._wrap import scen_like, to_compute
 from .base import TrainAdjust
@@ -85,6 +85,7 @@ def _extremes_adjust_core(sim, scen, px_hist, af, thresh, cluster_thresh, frac, 
     power, 0, 1)``.  The blend ``transition * scen_ext + (1 - transition) *
     scen`` is rounded once on its first product, as the JAX package's
     compiled core rounds it."""
+    _check_leading(sim.shape[:-1], thresh.shape)
     scalar = lambda v: torch.as_tensor(v, dtype=sim.dtype, device=sim.device)  # noqa: E731
     th = thresh[..., None]
     c, s = _fit(sim, thresh, scalar(cluster_thresh), max_clusters)

@@ -18,7 +18,7 @@ from ..ops.quantile import vecquantiles
 from ..ops.segment import gather_groups
 from ..utils.container import DataArray, Dataset
 from ..utils.grouper import Grouper
-from ..utils.tensor import as_tensor
+from ..utils.tensor import _check_leading, as_tensor
 from ..utils.units import convert_units_to
 from . import _algos
 from ._wrap import device_brackets, grouped_var, scen_like, to_compute, training_tensors
@@ -73,6 +73,7 @@ def _loci_adjust_core(sima, af, hist_thresh, thresh, brackets):
     rounds them."""
     sth = _algos.broadcast_groups_core(hist_thresh, brackets, fused=True)
     fac = _algos.broadcast_groups_core(af, brackets, fused=True)
+    _check_leading(sima.shape[:-1], sth.shape[:-1])
     return torch.clamp(fma(fac, sima - sth, thresh.expand_as(sima)), min=0)
 
 

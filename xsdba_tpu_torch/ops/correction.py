@@ -9,7 +9,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..utils.tensor import as_tensor
+from ..utils.tensor import _check_leading, as_tensor
 
 __all__ = [
     "ADDITIVE",
@@ -42,6 +42,7 @@ def apply_correction(x, factor, kind: str | None = None):
     factor's ``kind`` attribute (set by grouped trainers)."""
     if kind is None:
         kind = getattr(factor, "attrs", {}).get("kind")
+    _check_leading(np.shape(x)[:-1], np.shape(factor)[:-1])
     if kind == ADDITIVE:
         return x + factor
     if kind == MULTIPLICATIVE:

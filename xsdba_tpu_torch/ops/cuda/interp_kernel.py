@@ -29,8 +29,16 @@ floats, so the design (``csrc/interp_kernel.cu``) keeps the tables in shared
 memory, locates each value by a branch-free binary search of seven
 unrolled probes, moves long rows in 16-byte loads and stores around a scalar
 head and tail (row starts are not 16-byte aligned), and gives rows of fewer
-than :data:`SHORT_ROW` values a warp each, a value a lane a step.  Its device
-times on an NVIDIA H100 80GB HBM3 (700 W limit) are in ``PERF.md``, section 6.
+than :data:`SHORT_ROW` values a warp each, a value a lane a step.  The
+bracketed kernel lays each site's tables out once a block for a search and
+one load (the nodes and a sentinel above the last valid one in
+breadth-first order, 6 probes for nq <= 62 and 7 above; a 16-byte segment
+record a count of nodes), consecutive lanes take consecutive time steps,
+and a thread looks up two of them a round in both their tables, its four
+searches interleaved; a block serves one site over
+:data:`BRACKETED_CHUNK` steps.
+Device times on an NVIDIA H100 80GB HBM3 (700 W limit) are in ``PERF.md``,
+section 6.
 
 The source is compiled with ``nvcc`` at the first CUDA call by the port's
 shared build (:mod:`._build`) and bound with ``ctypes``.  Importing this
@@ -51,6 +59,7 @@ from ...utils.tensor import fma_emulated
 from . import _build
 
 __all__ = [
+    "BRACKETED_CHUNK",
     "BRACKETED_SMEM_BUDGET",
     "MAX_NQ",
     "METHODS",
@@ -79,9 +88,11 @@ launches_bracketed = 0
 MAX_NQ = 64
 #: rows of fewer values take one warp each (``kShortRow`` in the source)
 SHORT_ROW = 1024
-#: shared memory a block of the bracketed kernel may use for a site's tables
-#: (``kBracketSmem`` in the source: what a launch gets without opting in)
+#: the bracketed route admits a site's tables while :func:`bracketed_smem_bytes`
+#: fits this budget (``kBracketAdmitSmem`` in the source)
 BRACKETED_SMEM_BUDGET = 48 * 1024
+#: time steps a block of the bracketed kernel serves (``kBrChunk`` in the source)
+BRACKETED_CHUNK = 8 * 1024
 #: the row lookups' methods, as the C entries number them
 METHODS = {"linear": 0, "nearest": 1}
 _ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p], ctypes.c_int)
@@ -93,10 +104,13 @@ _SIGNATURES = {
 
 
 def bracketed_smem_bytes(gp: int) -> int:
-    """Shared memory a block of the bracketed kernel needs for a site's
-    ``gp`` tables, 1056 bytes each whatever their width: 65 (x, y) pairs,
-    129 probe nodes (128 and one to start the tables in different banks),
-    four constants and the valid count (``kTableBytes`` in the source)."""
+    """The bracketed route's count of shared memory for a site's ``gp``
+    tables: 1056 bytes each whatever their width (``kBracketAdmitTable`` in
+    the source), what a table took in the kernel's first layout (65 (x, y)
+    pairs, 129 probe nodes, four constants and the valid count).  The route
+    admits up to 46 tables a site by it.  The kernel's own layout takes
+    16 (nq + 2) + 4 (2^depth + 1) bytes a table (1092 at nq = 50) and asks
+    for more than 48 KB where a site's tables need it."""
     return gp * (16 + 8 * (MAX_NQ + 1) + 4 * (2 * MAX_NQ + 1) + 4)
 
 

@@ -167,7 +167,7 @@ def gev_fit_pwm(x):
     fewer than 3 valid values give NaN (a GEV has 3 parameters).
     """
     x = as_tensor(x)
-    xs = torch.sort(x, dim=-1).values  # NaNs sort to the end
+    xs = torch.sort(x, dim=-1, stable=True).values  # NaNs sort to the end
     N = x.shape[-1]
     valid = ~torch.isnan(xs)
     nf = valid.sum(dim=-1).to(xs.dtype)

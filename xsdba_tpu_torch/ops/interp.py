@@ -36,7 +36,7 @@ import numpy as np
 import torch
 
 from ..utils.grouper import partition_by_group
-from ..utils.tensor import as_tensor, numpy_dtype, to_numpy
+from ..utils.tensor import _check_leading, as_tensor, numpy_dtype, to_numpy
 from .cuda.fma_kernel import fma
 from .cuda.interp_kernel import MAX_NQ as KERNEL_MAX_NQ
 from .cuda.interp_kernel import METHODS as KERNEL_METHODS
@@ -104,9 +104,15 @@ def _cubic_slopes(xs, ys, nvalid):
     fuses the last row's second product instead.)
 
     xs, ys: [..., n] compacted (+inf x pads); nvalid: [...].  Returns
-    s [..., n] (unused past ``nvalid``).
+    s [..., n] (unused past ``nvalid``).  Tables narrower than 3 columns
+    raise a ``ValueError`` before the solve, the exception class the JAX
+    package's lookup raises for them (its boundary rows do not broadcast).
     """
     n = xs.shape[-1]
+    if n < 3:
+        raise ValueError(
+            f"cubic interpolation needs tables of at least 3 nodes, got {n}: train with nquantiles >= 3 or adjust with interp='linear'"
+        )
     m = nvalid[..., None].long()                                    # [..., 1]
     xsf = torch.where(torch.isfinite(xs), xs, 0.0)
     valid_seg = torch.arange(n - 1, device=xs.device) < (m - 1)      # [..., n-1]
@@ -320,6 +326,7 @@ def interp1d_table(v, xq, yq, method: str = "linear", extrap: str = "constant"):
     v = as_tensor(v)
     xq = as_tensor(xq, device=v.device)
     yq = as_tensor(yq, device=v.device)
+    _check_leading(v.shape[:-1], xq.shape[:-1])
     xs, ys, nvalid = _compact_nan_pairs(xq, yq)
     if not _uses_kernel(v, xs, ys, method, extrap):
         return _interp_unrolled(v, xs, ys, nvalid, method, extrap)
@@ -461,6 +468,7 @@ def interp_grouped_partitioned(
     see :func:`_compact_sorted_tables`).
     """
     v = as_tensor(v)
+    _check_leading(v.shape[:-1], np.shape(xq)[:-2])
     xq_p, yq_p, nv_p = _pad_cyclic_tables(as_tensor(xq, device=v.device), as_tensor(yq, device=v.device), tables_compact)
     T = v.shape[-1]
     Gp, nq = xq_p.shape[-2:]
@@ -510,6 +518,7 @@ def interp_on_quantiles_grouped(v, frac_idx, xq, yq, group_positions, method: st
     :func:`lookup_route`), as :func:`interp_grouped_partitioned` does.
     """
     v = as_tensor(v)
+    _check_leading(v.shape[:-1], np.shape(xq)[:-2])
     xq_p, yq_p, nv_p = _compact_nan_pairs(as_tensor(xq, device=v.device), as_tensor(yq, device=v.device))
     npdt = numpy_dtype(v.dtype)
     frac = to_numpy(frac_idx).astype(npdt)

@@ -71,7 +71,7 @@ def _nanmedian(a):
     """Median over the last axis ignoring NaNs, kept as [..., 1]: the two
     middle values averaged (``jnp.nanmedian``'s midpoint); NaN where every
     value is NaN."""
-    srt = torch.sort(a, dim=-1).values                      # NaNs last
+    srt = torch.sort(a, dim=-1, stable=True).values         # NaNs last
     counts = (~torch.isnan(a)).sum(dim=-1, keepdim=True)
     last = (counts - 1).clamp(min=0)
     low = torch.gather(srt, -1, torch.minimum((counts - 1) // 2, last).clamp(min=0))

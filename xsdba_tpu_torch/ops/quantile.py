@@ -3,8 +3,11 @@
 Replaces the reference's numba kernels (``nbutils.py:24-271``): per-row sort +
 type-7 (Hyndman-Fan; ``alpha=beta=1``) linear interpolation, NaN-aware.
 
-One ``torch.sort`` over the reduced axis (NaNs sort last, like numpy), then a
-vectorized gather + lerp — no Python-level row loop, any leading batch dims.
+One stable ``torch.sort`` over the reduced axis (NaNs sort last, like numpy;
+-0.0 and +0.0 tie and keep their order, as in the reference's stable
+``jnp.sort``, so a quantile that falls on a zero takes its sign from the
+same element), then a vectorized gather + lerp — no Python-level row loop,
+any leading batch dims.
 ``torch.nanquantile`` is not used: its lerp is not the symmetric
 :func:`_lerp` of the reference, so it differs in the last bits.
 """
@@ -112,7 +115,7 @@ def nan_quantile(x, quantiles, axis: int = -1, alpha: float = 1.0, beta: float =
     x = as_tensor(x)
     quantiles = as_tensor(quantiles, dtype=x.dtype, device=x.device)
     x = torch.movedim(x, axis, -1)
-    sorted_x = torch.sort(x, dim=-1).values  # NaNs sort to the end
+    sorted_x = torch.sort(x, dim=-1, stable=True).values  # NaNs sort to the end
     valid = (~torch.isnan(x)).sum(dim=-1)
     return _quantile_on_sorted(sorted_x, valid, quantiles, alpha, beta, fused=fused)
 
@@ -126,7 +129,7 @@ def vecquantiles(x, ranks, axis: int = -1, alpha: float = 1.0, beta: float = 1.0
     x = as_tensor(x)
     ranks = as_tensor(ranks, dtype=x.dtype, device=x.device)
     x = torch.movedim(x, axis, -1)
-    sorted_x = torch.sort(x, dim=-1).values
+    sorted_x = torch.sort(x, dim=-1, stable=True).values
     valid = (~torch.isnan(x)).sum(dim=-1)
     q = torch.nan_to_num(ranks, nan=0.0)[..., None]
     out = _quantile_on_sorted(sorted_x, valid, q, alpha, beta, fused=fused)[..., 0]

@@ -315,9 +315,10 @@ def _reordering_core(ref, sim):
     The rank of each position is the inverse of ref's stable argsort, which
     a scatter of ``arange`` along that permutation gives in one pass (the
     same integers as ``argsort(argsort(ref))``, without the second sort).
-    NaNs sort last, ties keep their order, and -0.0 ties with +0.0
-    (``torch.sort`` compares by value)."""
-    sim_sorted = torch.sort(sim, dim=-1).values
+    NaNs sort last, ties keep their order (both sorts are stable, as the
+    reference's ``jnp.sort`` is), and -0.0 ties with +0.0, so each zero
+    keeps its sign where the reference puts it."""
+    sim_sorted = torch.sort(sim, dim=-1, stable=True).values
     perm = torch.argsort(ref, dim=-1, stable=True)
     pos = torch.arange(ref.shape[-1], device=ref.device).expand(perm.shape)
     order = torch.empty_like(perm).scatter_(-1, perm, pos)
@@ -874,7 +875,7 @@ def rank(da: DataArray, dim: str = "time", pct: bool = False, use_random_tiebrea
 
 def sort_along_dim(da: DataArray, dim: str = "time") -> DataArray:
     """Sort values along a dimension, NaNs last (reference utils.py:516-542)."""
-    return _scen_like(da, torch.sort(input_tensor(da.move_dim_last(dim).data), dim=-1).values, da.name)
+    return _scen_like(da, torch.sort(input_tensor(da.move_dim_last(dim).data), dim=-1, stable=True).values, da.name)
 
 
 def get_clusters(data: DataArray, u1, u2, dim: str = "time") -> Dataset:

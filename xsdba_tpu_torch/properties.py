@@ -170,7 +170,7 @@ def _nanquantile(x, q):
     it (``fma``), rounded to x's dtype at the end."""
     from .ops.cuda.fma_kernel import fma
 
-    xs = torch.sort(x, dim=-1).values.double()
+    xs = torch.sort(x, dim=-1, stable=True).values.double()
     n = (~torch.isnan(xs)).sum(dim=-1, keepdim=True).double()
     pos = q * (n - 1)
     low, high = torch.floor(pos), torch.ceil(pos)

@@ -114,6 +114,22 @@ def fma_emulated(a, b, c) -> torch.Tensor:
     return torch.where(torch.isfinite(out), out, p + c)
 
 
+def _check_leading(values_lead, trained_lead) -> None:
+    """Raise unless a value array's leading dims ``values_lead`` broadcast
+    against a trained array's ``trained_lead``.  Both packages match them by
+    position from the right (ROADMAP C25), so arrays trained on [site, time]
+    fail against a ``stack_periods`` sim laid out as [site, period, time]:
+    the ``ValueError`` (the JAX package's class) says how to lay sim out."""
+    try:
+        torch.broadcast_shapes(tuple(values_lead), tuple(trained_lead))
+    except RuntimeError:
+        raise ValueError(
+            f"the trained arrays' leading dims {tuple(trained_lead)} do not broadcast against sim's {tuple(values_lead)}: "
+            "they are matched by position from the right, so a sim stacked by stack_periods must have its period dim "
+            'first, sim.transpose("period", ...)'
+        ) from None
+
+
 def to_numpy(x) -> np.ndarray:
     """Host numpy copy (or view) of a tensor or array-like."""
     if isinstance(x, torch.Tensor):
