@@ -51,6 +51,13 @@ Phases, each reported on lines of its own:
    366 and 1023 groups, windows 1, 5 and 31, wrapping intervals, an all-NaN
    row, a group with no valid value, +-0.0 ties, chunks of 8192 and of 192
    values), and the selection path's first site chunk of its 448 rows;
+   K1 (``linear`` and ``nearest``) on tables with +inf holes
+   (:func:`holey_tables`: quantile-trained tables with NaN factors inside,
+   ROADMAP C31) at the monthly partition's long rows, the windowed adjust's
+   short rows and with the search's edges, and K2 on the long rows
+   flattened, by bit pattern (any NaN equal to any NaN); K1 on the same
+   tables with their nodes shuffled (:func:`shuffled_tables`, the general
+   ranking), by bit pattern;
 4. main path: ``QuantileDeltaMapping.train(...).adjust(...)`` on CUDA
    tensors of 512 sites x 150 noleap years, f32, ``nquantiles=50``,
    monthly groups; finite, its adjust one launch of the bracketed lookup
@@ -60,7 +67,12 @@ Phases, each reported on lines of its own:
    QDM train on the numpy arrays and two adjusts of the same sim, uploads
    counted (2, 1, 0: the second adjust uploads nothing), the two scen
    equal, the adjust timed by the host clock with the cached sim and with
-   the cache cleared before each call;
+   the cache cleared before each call; (4d) the signs of zero
+   (:func:`c29_phase`); (4e) C31 through the public path
+   (:func:`c31_phase`): a dayofyear + 31 QDM, ``kind="*"``, on numpy
+   dry-day pr of 512 sites x 150 years, adjusted with ``nearest`` and
+   ``linear`` through K1 on tables with +inf holes, the first 8 sites'
+   scen equal to the CPU port's by bit pattern;
 5. heavy: ``EmpiricalQuantileMapping.train(group="time.dayofyear",
    window=31).adjust(interp="linear")`` on CUDA tensors of 256 sites x 150
    noleap years (``bench.py``'s heavy data: seed 1, ref ~ N(10, 2), hist ~
@@ -194,6 +206,16 @@ Phases, each reported on lines of its own:
    ``fold_windows_kernel``, ``interp_rows_kernel``); phase 6 times the
    fused QDM step with ``utils.profiling.timed`` beside its CUDA-event
    median, and ``timed``'s best is at least the events' least sample;
+5i. the parallel layer (:func:`parallel_phase`, ``xsdba_tpu_torch/parallel``)
+   under one NCCL rank, for correctness only (one card: no speed across
+   cards): ``site_mesh("cuda")`` with no launcher forms a one-rank world;
+   the headline QDM step through ``shard_sites`` and the site mesh equal to
+   the direct core under ==; ``sharded_pairwise_corr`` on config 5's
+   2048-site tile (daily tas ref, f64, [2048, 54750]) against the
+   one-process product at 1e-12; ``sharded_first_eof`` on the tile's annual
+   means [2048, 150] against ``ops/pca.py:first_eof_pattern`` at atol 1e-10;
+   ``sharded_rotation_apply`` on a (1, 1) site x var mesh at MBCn-b's shape
+   against ``torch.matmul`` at 1e-6 (f32); each hold with its wall time;
 6. times (2 warm-ups, median of 5 and the spread): the fused QDM, windowed
    EQM (merge) and selection steps (at 224 sites the gather engine, the
    default mode's emit engine and the merge engine in turns; the emit
@@ -210,7 +232,8 @@ Phases, each reported on lines of its own:
    without the payload; K5's sorts the top level's runs, one of its four
    levels; fma's is ``torch.addcmul``, timed in turns with the kernel), K1 also on the monthly
    partition's long rows, fma also on same-shape operands and in float64,
-   K3's long-row variant at m = 2048, the peak device memory of
+   K3's long-row variant at m = 2048, K1 on tables with +inf holes beside
+   the same values on ordered tables (each method, in turns), the peak device memory of
    the heavy and selection steps and of the heavy public call, the MBCn-a
    and MBCn-b train steps (``_mbcn_train_block``; MBCn-b's on its first
    chunk of blocks) in training iterations/s with their peak memory, the
@@ -281,6 +304,7 @@ from xsdba_tpu_torch.ops.quantile import merge_slab
 from xsdba_tpu_torch.ops.rotation import rand_rot_matrix
 from xsdba_tpu_torch.ops.segment import gather_groups
 from xsdba_tpu_torch.ops.selquant import _emit_operands, default_sort_impl, max_chunk, plan_labels
+from xsdba_tpu_torch.parallel.dryrun import example_problem, monthly_qdm_step  # the headline recipe and step
 from xsdba_tpu_torch.utils import profiling
 
 N_SITES, N_YEARS, NQ = 512, 150, 50
@@ -481,6 +505,15 @@ def holey_tables(B, Gp, nq, seed=0):
     return xs.contiguous(), ys.contiguous(), nv.to(torch.int32)
 
 
+def shuffled_tables(xs, ys, seed=0):
+    """Tables [..., nq] whose (x, y) pairs are shuffled within each row: nodes
+    in no order at all, which the lookups' twins accept too (K1 ranks such a
+    row by nq comparisons a node, not by its ballots for +inf holes)."""
+    g = torch.Generator().manual_seed(seed)
+    order = torch.argsort(torch.rand(xs.shape, generator=g), dim=-1).to(xs.device)
+    return torch.take_along_dim(xs, order, -1).contiguous(), torch.take_along_dim(ys, order, -1).contiguous()
+
+
 # the bracketed kernel's edge cases (bracket_cases): (sites, T, Gp, nq) with
 # random brackets, then inputs laid out off 16 bytes and group ids outside
 # [0, Gp)
@@ -573,17 +606,6 @@ def extremes_fma_inputs(S, T, dtype, seed=0, device="cpu"):
         "GPD PPF loc + scale z": (scale.expand_as(zq), zq, loc.expand_as(zq)),
         "final blend": (tr, ext, (1 - tr) * scen),
     }
-
-
-def example_problem(n_sites, n_years, seed=0, start="2000-01-01"):
-    """The headline data recipe (``__graft_entry__._example_problem``):
-    numpy f32 ref ~ N(10, 2), hist ~ N(12, 3), sim ~ N(13, 3), drawn in turn
-    from one generator, over ``n_years`` noleap years of daily data."""
-    t = xp.date_range(start, periods=365 * n_years, freq="D", calendar="noleap")
-    rng = np.random.default_rng(seed)
-    T = len(t)
-    data = [rng.normal(mu, sd, (n_sites, T)).astype(np.float32) for mu, sd in ((10, 2), (12, 3), (13, 3))]
-    return t, data
 
 
 def heavy_problem(n_sites, n_years):
@@ -1676,6 +1698,50 @@ def c29_phase(dev, gi):
     return out
 
 
+def c31_phase(dev):
+    """ROADMAP C31 through the public path: a dayofyear + 31 QDM with
+    ``kind="*"`` on :func:`dry_day_problem`'s numpy pr, whose trained
+    factors are NaN at the low quantiles (0 / 0), so the adjust's tables
+    carry +inf holes and K1 looks values up in them; on the card, with
+    ``nearest`` (QDM's default) and ``linear``.  The first CHECK_SITES
+    sites' ``scen`` is held to the CPU port's (on the merge engine, the
+    card's) by bit pattern.  Returns {interp: K1 launches of the adjust}."""
+    t, (ref_np, hist_np, sim_np) = dry_day_problem(N_SITES, N_YEARS)
+    group = xp.Grouper("time.dayofyear", window=HEAVY_WINDOW)
+    train = lambda r, h: xp.QuantileDeltaMapping.train(_pr_da(r, t, "ref"), _pr_da(h, t, "hist"), kind="*", group=group, nquantiles=NQ)  # noqa: E731
+    cut = slice(0, CHECK_SITES)
+    qdm = train(ref_np, hist_np)
+    with xp.set_options(device="cpu", selection_backend=False):   # the CPU's default engine is selection
+        qdm_cpu = train(ref_np[cut], hist_np[cut])
+    af = qdm.ds["af"].data
+    holes = int((torch.isnan(af).any(dim=-1) & ~torch.isnan(af).all(dim=-1)).sum())
+    assert af.device.type == torch.device(dev).type and holes > 0, "no trained table with a NaN factor inside"
+    # the trained factors against the CPU port's, by bit pattern: printed, not
+    # held (the merge kernels may place ±0.0 ties otherwise than the twins,
+    # ROADMAP C3), split into zeros and infinities of the other sign and the rest
+    a, b = af[cut].cpu(), qdm_cpu.ds["af"].data
+    moved = (_bits(a) != _bits(b)) & ~(torch.isnan(a) & torch.isnan(b))
+    af_diff = (f"{int(moved.sum())} of {a.numel()} (zeros of the other sign {int((moved & (a == 0) & (b == 0)).sum())}, "
+               f"infinities of the other sign {int((moved & torch.isinf(a) & (a == -b)).sum())})")
+    out = {}
+    for interp in ("nearest", "linear"):
+        torch.cuda.synchronize()
+        _reset_counts()
+        scen = qdm.adjust(_pr_da(sim_np, t, "sim"), interp=interp).data
+        torch.cuda.synchronize()
+        counts = _counts()
+        assert scen.device.type == torch.device(dev).type and counts["interp_table_3d"] >= 1, f"C31 public adjust launches {counts}"
+        with xp.set_options(device="cpu", selection_backend=False):
+            want = qdm_cpu.adjust(_pr_da(sim_np[cut], t, "sim"), interp=interp).data
+        got = scen[cut].cpu()
+        print(f"[c31] public dayofyear+{HEAVY_WINDOW} QDM kind=* interp={interp} on dry-day pr {tuple(scen.shape)}: {holes} trained tables "
+              f"with a NaN factor inside; launches {counts}; first {CHECK_SITES} sites: {int(torch.isnan(got).sum())} NaN, "
+              f"{int(torch.isinf(got).sum())} infinities; trained factors differing from the CPU port's by bit pattern: {af_diff}", flush=True)
+        _compare_bits(f"C31 public dayofyear+{HEAVY_WINDOW} QDM kind=* interp={interp}, first {CHECK_SITES} sites vs the CPU port", got, want)
+        out[interp] = counts["interp_table_3d"]
+    return out
+
+
 # phase 5g: the cubic lookup, period stacking, additive space, the spectral
 # filter and the public lookup at full width
 MW_WINDOW, MW_STRIDE, MW_TRAIN_YEARS, MW_CHECK = 30, 10, 30, 4
@@ -2025,6 +2091,100 @@ def shell_phase(smi, heavy):
     return counts
 
 
+def parallel_phase(dev, smi):
+    """Phase 5i (module docstring): the parallel layer
+    (``xsdba_tpu_torch/parallel``) under one NCCL rank, for correctness
+    (one card: no speed across cards is measured).  Returns {hold: wall
+    seconds}."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor
+
+    from xsdba_tpu_torch.ops.pca import first_eof_pattern
+    from xsdba_tpu_torch.parallel import mesh as pmesh
+
+    assert not dist.is_initialized()
+    mesh = pmesh.site_mesh("cuda")   # no launcher, no process group: a one-rank world
+    walls = {}
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    try:
+        assert dist.get_backend() == "nccl" and dist.get_world_size() == 1 and tuple(mesh.shape) == (1,), (dist.get_backend(), mesh)
+
+        # the headline QDM step through shard_sites and the site mesh, against the direct core
+        t, data = example_problem(N_SITES, N_YEARS)
+        step = monthly_qdm_step(t, dev, nq=NQ)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        blocks = [pmesh.shard_sites(a, mesh).to_local() for a in data]
+        scen = DTensor.from_local(step(*blocks), mesh, pmesh.site_sharding(mesh, 2)).full_tensor()
+        torch.cuda.synchronize()
+        walls["QDM step"] = time.perf_counter() - t0
+        direct = step(*(torch.from_numpy(a).to(dev) for a in data))
+        n_diff = int((~_nan_equal(scen, direct)).sum())
+        print(f"[parallel] the headline QDM step {tuple(scen.shape)} through shard_sites on the one-rank NCCL site mesh: {n_diff} of {scen.numel()} "
+              f"values differ from the direct core under == ({walls['QDM step']:.3f} s wall, with the upload) [{smi}]", flush=True)
+        assert n_diff == 0, "the sharded QDM step differs from the direct core"
+        del scen, direct, blocks
+
+        # the pairwise correlation on config 5's 2048-site tile (daily tas
+        # ref, float64) against the one-process product (TF32 off)
+        tile = np.concatenate([config5_block(b)[1][0] for b in range(C5_SITES // C5_BLOCK)]).astype(np.float64)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        corr = pmesh.sharded_pairwise_corr(pmesh.shard_sites(tile, mesh), mesh).full_tensor()
+        torch.cuda.synchronize()
+        walls["pairwise corr"] = time.perf_counter() - t0
+        x = torch.from_numpy(tile).to(dev)
+        x = x - x.mean(dim=-1, keepdim=True)
+        nrm = torch.sqrt((x * x).sum(dim=-1, keepdim=True))
+        x = x / torch.where(nrm == 0, 1, nrm)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        want = x @ x.T
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        print(f"[parallel] sharded_pairwise_corr on config 5's tile {tuple(tile.shape)} f64 -> {tuple(corr.shape)}: max abs diff from the "
+              f"one-process product {_max_abs(corr, want):.3g} ({walls['pairwise corr']:.3f} s wall, with the upload) [{smi}]", flush=True)
+        torch.testing.assert_close(corr, want, rtol=1e-12, atol=1e-12)
+        del corr, want, x
+
+        # the leading EOF of the tile's annual means [2048, 150] against first_eof_pattern
+        annual = tile.reshape(C5_SITES, C5_YEARS, 365).mean(axis=-1)
+        del tile
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eof, frac = pmesh.sharded_first_eof(annual, mesh)
+        eof, frac = eof.full_tensor(), float(frac.to_local())
+        torch.cuda.synchronize()
+        walls["first EOF"] = time.perf_counter() - t0
+        want_v, want_frac = first_eof_pattern(torch.from_numpy(annual - annual.mean(axis=1, keepdims=True)).to(dev).T)
+        print(f"[parallel] sharded_first_eof on the tile's annual means {annual.shape} f64: max abs diff from first_eof_pattern "
+              f"{_max_abs(eof, want_v):.3g}, var_frac {frac!r} against {float(want_frac)!r} ({walls['first EOF']:.3f} s wall) [{smi}]", flush=True)
+        torch.testing.assert_close(eof, want_v, rtol=0, atol=1e-10)
+        assert abs(frac - float(want_frac)) <= 1e-10 * abs(float(want_frac)), (frac, float(want_frac))
+
+        # the rotation on a (1, 1) site x var mesh at MBCn-b's shape (its
+        # first chunk's blocks of every site, V, the window's values)
+        mesh2 = init_device_mesh("cuda", (1, 1), mesh_dim_names=(pmesh.SITE_AXIS, pmesh.VAR_AXIS))
+        _, _, b_width, b_chunk = mbcn_chunks(MBCN_B["sites"], MBCN_B["group"])
+        g = torch.Generator(device=dev).manual_seed(41)
+        xr = torch.randn(MBCN_B["sites"] * b_chunk, MBCN_VARS, b_width, generator=g, device=dev)
+        rot = torch.randn(MBCN_VARS, MBCN_VARS, generator=g, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y = pmesh.sharded_rotation_apply(rot, xr, mesh2).full_tensor()
+        torch.cuda.synchronize()
+        walls["rotation"] = time.perf_counter() - t0
+        torch.backends.cuda.matmul.allow_tf32 = False
+        want = torch.matmul(rot, xr)
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        print(f"[parallel] sharded_rotation_apply on a (1, 1) site x var mesh {tuple(xr.shape)} f32: max abs diff from torch.matmul "
+              f"{_max_abs(y, want):.3g} ({walls['rotation']:.3f} s wall) [{smi}]", flush=True)
+        torch.testing.assert_close(y, want, rtol=1e-6, atol=1e-6)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        dist.destroy_process_group()
+    return walls
+
+
 def main() -> int:
     # 1. device
     if not torch.cuda.is_available():
@@ -2123,14 +2283,23 @@ def main() -> int:
     _hold_bits(err, "bracketed", "bracketed lookup, random brackets nq=7 Gp=5", *kbr, *bracket_inputs(3, 5, 7, odd_g0, odd_g1, odd_w, seed=7, device=dev, extra=True))
     for label, args in bracket_cases(dev).items():
         _hold_bits(err, "bracketed", f"bracketed lookup, {label}", *kbr, *args)
-    # the row lookups on tables with +inf holes (ROADMAP C31): counted, not held
+    # the row lookups on tables with +inf holes (ROADMAP C31, repaired: a
+    # row out of order is searched by value), by bit pattern (any NaN equal
+    # to any NaN): K1 on the monthly partition's long rows (a block a tile)
+    # and on the windowed adjust's short rows (a warp a row), K2 on the long
+    # rows flattened, each method, also with the search's edges
     hxs, hys, hnv = (a.to(dev) for a in holey_tables(N_SITES, Gp, NQ, seed=15))
-    for label, kernel, twin in (("K1", *k1), ("K1 nearest", lambda *a: k1[0](*a, "nearest"), lambda *a: k1[1](*a, "nearest"))):
-        got, want = kernel(v, hxs, hys, hnv), twin(v, hxs, hys, hnv)
-        torch.cuda.synchronize()
-        print(f"[kernel] {label} on tables with +inf holes {tuple(v.shape)} (ROADMAP C31, not held): {_signs(got, want)} of {got.numel()} "
-              "values differ from the twin by bit pattern", flush=True)
-    del hxs, hys, hnv
+    hxsh, hysh, hnvh = (a.to(dev) for a in holey_tables(HEAVY_SITES, hgp, NQ, seed=16))
+    vedge = lookup_inputs(8, Gp, Lp, NQ, seed=17, device=dev, extra=True)[0]
+    flat = lambda *a: tuple(x.reshape((-1,) + x.shape[2:]) for x in a)  # noqa: E731
+    for method, (k1_key, k2_key) in (("linear", ("K1", "K2")), ("nearest", ("K1 nearest", "K2 nearest"))):
+        _hold_bits(err, k1_key, f"K1 {method} on tables with +inf holes, long rows nq={NQ}", *k1, v, hxs, hys, hnv, method)
+        _hold_bits(err, k1_key, f"K1 {method} on tables with +inf holes, short rows nq={NQ}", *k1, vh, hxsh, hysh, hnvh, method)
+        _hold_bits(err, k1_key, f"K1 {method} on tables with +inf holes, the search's edges nq={NQ}", *k1, vedge, hxs[:8], hys[:8], hnv[:8], method)
+        _hold_bits(err, k2_key, f"K2 {method} on tables with +inf holes, rows nq={NQ}", *k2, *flat(v, hxs, hys, hnv), method)
+        _hold_bits(err, k1_key, f"K1 {method} on shuffled tables, the search's edges nq={NQ}", *k1, vedge, *shuffled_tables(hxs[:8], hys[:8], seed=18), hnv[:8], method)
+        _hold_bits(err, k1_key, f"K1 {method} on shuffled tables, short rows nq={NQ}", *k1, vh[:8], *shuffled_tables(hxsh[:8], hysh[:8], seed=19), hnvh[:8], method)
+    del hxs, hys, hnv, vedge
 
     # the fused multiply-add against its emulation by bit pattern (any NaN
     # equal to any NaN) on its edge cases, each layout class its kernel
@@ -2304,6 +2473,11 @@ def main() -> int:
     # rows; the parent's unstable sort on the card is counted beside it
     zero_checks = c29_phase(dev, gi)
     print(f"[c29] every sign-of-zero check held: {zero_checks}", flush=True)
+
+    # 4e. C31 through the public path: dayofyear + 31 QDM, kind="*", on
+    # dry-day pr, K1 on tables with +inf holes, against the CPU port by bit pattern
+    c31_counts = c31_phase(dev)
+    print(f"[c31] the public kind='*' dayofyear adjusts held; K1 launches {c31_counts}", flush=True)
 
     # 4b. the same data with one group: the adjust's lookup is K2
     torch.cuda.synchronize()
@@ -2625,6 +2799,11 @@ def main() -> int:
     print(f"[shell] the trace's launches (kernels launched at least once): {({k: n for k, n in shell_counts.items() if n})}", flush=True)
 
     _wrap.clear_device_cache()   # no cached copies of the phases before in what is held
+    # 5i. the parallel layer under one NCCL rank (correctness only)
+    parallel_walls = parallel_phase(dev, smi)
+    print(f"[parallel] every hold passed; wall seconds {parallel_walls}", flush=True)
+
+    _wrap.clear_device_cache()   # no cached copies of the phases before in what is held
     # 6. times
     q = torch.as_tensor(equally_spaced_nodes(NQ), dtype=torch.float32, device=dev)
     idx = [torch.as_tensor(a, device=dev) for a in (gi.gather_idx, gi.group_idx, gi.scatter_slot)]
@@ -2846,6 +3025,16 @@ def main() -> int:
               "emit": f"{tuple(eops[0].shape)}, {int(plan.fast_mask.shape[0])} groups, nq {NQ} (one site chunk of the selection path)"}
     for k, (kern, twin) in times.items():
         print(f"[time] {k} {KERNELS[k]['name']} {shapes[k]}: kernel {_fmt(kern)}; plain twin {_fmt(twin)}", flush=True)
+    # K1 on tables with +inf holes (ROADMAP C31: such a row is ranked by
+    # value at staging) beside the same values on ordered tables, in turns
+    holey = _steps_in_turns({
+        "linear, ordered tables": lookup_short,
+        "linear, tables with +inf holes": lambda: interp_kernel.interp_table_3d(vh, hxsh, hysh, hnvh),
+        "nearest, ordered tables": lambda: interp_kernel.interp_table_3d(vh, xsh, ysh, nvh, "nearest"),
+        "nearest, tables with +inf holes": lambda: interp_kernel.interp_table_3d(vh, hxsh, hysh, hnvh, "nearest"),
+    }, reps=7, batch=KERNEL_BATCH)
+    for label, sm in holey.items():
+        print(f"[time] K1 {label} {tuple(vh.shape)} nq {NQ}, in turns: kernel {_fmt(sm)} [{smi}]", flush=True)
     # the lookup on the partition route's long rows (the headline's shape
     # before the bracketed entry), fma on same-shape operands and in float64
     kern, twin = _in_turns(lookup, lookup_twin, **kb)

@@ -37,6 +37,8 @@ from chip_smoke import (
     fma_inputs,
     heavy_problem,
     held_with_flips,
+    holey_tables,
+    shuffled_tables,
     lookup_inputs,
     nan_masked,
     pair_sorted,
@@ -636,6 +638,60 @@ def test_quantiles_keep_the_sign_of_zero(cuda, T):
     ranks = qs[torch.from_numpy(np.random.default_rng(T).integers(0, 11, 512))]
     assert _same_bits_or_nan(quant.nan_quantile(x.to(cuda), qs.to(cuda)).cpu(), quant.nan_quantile(x, qs))
     assert _same_bits_or_nan(quant.vecquantiles(x.to(cuda), ranks.to(cuda)).cpu(), quant.vecquantiles(x, ranks))
+
+
+@pytest.mark.parametrize("method", ["linear", "nearest"])
+@pytest.mark.parametrize("B,Gp,Lp,nq", [
+    (16, 367, 150, 50),   # the windowed adjust's short rows: a warp a row
+    (8, 14, 4650, 50),    # the monthly partition's long rows: a block a tile
+    (3, 11, 150, 64),     # the widest table, a block's warps part empty
+    (5, 4, 3, 2),         # two-node tables
+    (2, 3, 1025, 1),      # one-node tables, just over the short-row limit
+])
+def test_row_lookups_on_tables_with_inf_holes_by_bit_pattern(cuda, method, B, Gp, Lp, nq):
+    """ROADMAP C31: quantile-trained tables with NaN factors inside, as the
+    grouped adjust's fast path lays them out (+inf holes;
+    ``chip_smoke.holey_tables``), with the search's edges in the values: K1
+    and K2 (the same tables as rows) count nodes by value and take the
+    segment by position, as their twins do, bit for bit (any NaN equal to
+    any NaN)."""
+    xs, ys, nv = (a.to(cuda) for a in holey_tables(B, Gp, nq, seed=Lp + nq))
+    v = lookup_inputs(B, Gp, Lp, nq, seed=Lp, device=cuda, extra=True)[0]
+    before = (k.launches, k.launches_2d)
+    got = k.interp_table_3d(v, xs, ys, nv, method)
+    rows = tuple(a.reshape((B * Gp,) + a.shape[2:]) for a in (v, xs, ys, nv))
+    got2 = k.interp_table_2d(*rows, method)
+    torch.cuda.synchronize()
+    assert (k.launches, k.launches_2d) == (before[0] + 1, before[1] + 1)
+    want = k.interp_table_3d_reference(v, xs, ys, nv, method)
+    assert _same_bits_or_nan(got, want)
+    assert _same_bits_or_nan(got2, k.interp_table_2d_reference(*rows, method))
+
+
+@pytest.mark.parametrize("method", ["linear", "nearest"])
+@pytest.mark.parametrize("B,Gp,Lp,nq", [(16, 367, 150, 50), (8, 14, 4650, 50), (3, 11, 150, 64)])
+def test_row_lookups_on_shuffled_tables_by_bit_pattern(cuda, method, B, Gp, Lp, nq):
+    """Tables whose nodes are in no order (``chip_smoke.shuffled_tables``),
+    which K1 ranks by comparisons where the +inf holes' ballots do not
+    serve: K1 and K2 equal their twins bit for bit (any NaN equal to any
+    NaN)."""
+    xs, ys, nv = holey_tables(B, Gp, nq, seed=Lp + nq + 1)
+    xs, ys, nv = (a.to(cuda) for a in (*shuffled_tables(xs, ys, seed=nq), nv))
+    v = lookup_inputs(B, Gp, Lp, nq, seed=Lp + 1, device=cuda, extra=True)[0]
+    got = k.interp_table_3d(v, xs, ys, nv, method)
+    rows = tuple(a.reshape((B * Gp,) + a.shape[2:]) for a in (v, xs, ys, nv))
+    assert _same_bits_or_nan(got, k.interp_table_3d_reference(v, xs, ys, nv, method))
+    assert _same_bits_or_nan(k.interp_table_2d(*rows, method), k.interp_table_2d_reference(*rows, method))
+
+
+def test_parallel_dryrun_on_one_nccl_rank(cuda):
+    """The port's dry run of its parallel layer (``parallel/dryrun.py``) on
+    one spawned NCCL rank: the split QDM step and windowed EQM equal one
+    process on the card under ``==``, the correlation, the EOF and both
+    windowed engines as the dry run asserts."""
+    from xsdba_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    dryrun_multichip(1, device="cuda")
 
 
 def test_bracketed_wrapper_raises_over_its_budget(cuda):

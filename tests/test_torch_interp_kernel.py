@@ -537,3 +537,121 @@ def test_wrapper_rejects_an_unknown_method():
     with pytest.raises(ValueError, match="methods"):
         k.interp_table_2d_reference(*(a.reshape((-1,) + a.shape[2:]) for a in args), "cubic")
     assert k.METHODS == {"linear": 0, "nearest": 1}
+
+
+# ------------------------------------------------------------- C31: +inf holes
+
+
+def _holey(B=4, Gp=14, nq=50, Lp=300, seed=15):
+    """``chip_smoke.holey_tables``' draws (ascending f32 nodes, factors NaN on
+    a leading run of up to a third of the nodes, on 10 % of the others and
+    on 2 % of the rows), laid out by the JAX package's
+    ``_compact_sorted_tables`` as its grouped adjust lays trained tables
+    out (+inf holes where the factor is NaN: ROADMAP C31), and values with
+    the search's edges: on nodes and holes, +-inf, NaN, below and above.
+    Returns numpy (v, xs, ys, nvalid int32)."""
+    from xsdba_tpu.ops.interp import _compact_sorted_tables
+
+    rng = np.random.default_rng(seed)
+    xq = np.sort(rng.normal(0, 1, (B, Gp, nq)), axis=-1).astype(np.float32)
+    yq = rng.normal(0, 1, (B, Gp, nq)).astype(np.float32)
+    lead = rng.integers(0, nq // 3 + 1, (B, Gp))
+    yq[np.arange(nq) < lead[..., None]] = np.nan
+    yq[rng.random((B, Gp, nq)) < 0.1] = np.nan
+    yq[rng.random((B, Gp)) < 0.02] = np.nan
+    xs, ys, nv = (np.asarray(a) for a in _compact_sorted_tables(jnp.asarray(xq), jnp.asarray(yq)))
+    v = rng.normal(0, 3, (B, Gp, Lp)).astype(np.float32)
+    v[..., 3::11] = np.take_along_axis(xs, rng.integers(0, nq, v[..., 3::11].shape), axis=-1)
+    special = rng.random(v.shape)
+    v[special < 0.01] = np.nan
+    v[(special >= 0.01) & (special < 0.015)] = np.inf
+    v[(special >= 0.015) & (special < 0.02)] = -np.inf
+    return v, xs, ys, nv.astype(np.int32)
+
+
+def _same_bits(a, b):
+    return bool(((a.view(np.int32) == b.view(np.int32)) | (np.isnan(a) & np.isnan(b))).all())
+
+
+@pytest.mark.parametrize("form", ["3d", "2d"])
+@pytest.mark.parametrize("method", ["linear", "nearest"])
+def test_twins_equal_reference_on_tables_with_inf_holes(method, form):
+    """ROADMAP C31: on quantile-trained tables with NaN factors inside (the
+    grouped adjust's fast-path layout, the JAX package's own), the twins of
+    K1 and K2 count nodes by value and take the segment by position, as the
+    reference's compiled lookup does: its bits (any NaN equal to any NaN).
+    The port's layout of the same tables is the reference's."""
+    v, xs, ys, nv = _holey()
+    before = np.isinf(xs) & ~np.isinf(np.roll(xs, -1, axis=-1)) & (np.arange(xs.shape[-1]) < xs.shape[-1] - 1)
+    assert before.any(), "no +inf hole before a finite node"
+    ref = jax.jit(_interp_unrolled, static_argnums=(4, 5))
+    want = np.asarray(ref(*(jnp.asarray(a) for a in (v, xs, ys, nv)), method, "constant"))
+    args = _torch(v, xs, ys, nv)
+    if form == "3d":
+        got = k.interp_table_3d(*args, method).numpy()
+    else:
+        got = k.interp_table_2d(*(a.reshape((-1,) + a.shape[2:]) for a in args), method).numpy().reshape(v.shape)
+    assert _same_bits(got, want)
+    # the port lays the trained tables out as the reference does
+    rng = np.random.default_rng(15)
+    xq = np.sort(rng.normal(0, 1, xs.shape), axis=-1).astype(np.float32)
+    yq = np.where(np.isnan(ys), np.nan, xq)
+    pxs, pys, pnv = tinterp._compact_sorted_tables(torch.from_numpy(xq), torch.from_numpy(yq))
+    from xsdba_tpu.ops.interp import _compact_sorted_tables
+
+    jxs, jys, jnv = (np.asarray(a) for a in _compact_sorted_tables(jnp.asarray(xq), jnp.asarray(yq)))
+    assert _same_bits(pxs.numpy(), jxs) and _same_bits(pys.numpy(), jys) and (pnv.numpy() == jnv).all()
+
+
+@pytest.mark.parametrize("form", ["3d", "2d"])
+@pytest.mark.parametrize("method", ["linear", "nearest"])
+def test_twins_equal_reference_on_shuffled_tables(method, form):
+    """Tables whose (x, y) pairs are shuffled within each row (nodes in no
+    order, the case K1 ranks by comparisons): the twins of K1 and K2 equal
+    the reference's compiled lookup bit for bit (any NaN equal to any NaN)."""
+    v, xs, ys, nv = _holey(seed=16)
+    order = np.argsort(np.random.default_rng(17).random(xs.shape), axis=-1)
+    xs, ys = np.take_along_axis(xs, order, -1), np.take_along_axis(ys, order, -1)
+    ref = jax.jit(_interp_unrolled, static_argnums=(4, 5))
+    want = np.asarray(ref(*(jnp.asarray(a) for a in (v, xs, ys, nv)), method, "constant"))
+    args = _torch(v, xs, ys, nv)
+    if form == "3d":
+        got = k.interp_table_3d(*args, method).numpy()
+    else:
+        got = k.interp_table_2d(*(a.reshape((-1,) + a.shape[2:]) for a in args), method).numpy().reshape(v.shape)
+    assert _same_bits(got, want)
+
+
+@pytest.mark.parametrize("interp", ["nearest", "linear"])
+def test_public_dayofyear_qdm_on_dry_days_equals_reference(monkeypatch, interp):
+    """A public ``kind="*"`` dayofyear + 31 QDM adjust on dry-day precipitation
+    (``chip_smoke.dry_day_problem``'s recipe: 30 % and 45 % of the days ±0.0):
+    its trained factors are NaN at the low quantiles (0 / 0), so the adjust's
+    tables carry +inf holes (C31) and its lookup, ``nearest`` (QDM's
+    default) or ``linear``, is K1's twin; ``scen`` equals the reference's
+    under ``==`` (``test_torch_qdm.py``'s tolerance for the public
+    ``scen``)."""
+    import xsdba_tpu as xt
+    from chip_smoke import dry_day_problem
+
+    t, data = dry_day_problem(3, 4)
+    tj = xt.date_range("2000-01-01", periods=len(t), freq="D", calendar="noleap")
+    pk = lambda mod, tt, a, name: mod.DataArray(a, ("site", "time"), {"time": tt}, {"units": "mm/d"}, name)  # noqa: E731
+    kw = dict(kind="*", group=xp.Grouper("time.dayofyear", window=31), nquantiles=50)
+    port = xp.QuantileDeltaMapping.train(pk(xp, t, data[0], "ref"), pk(xp, t, data[1], "hist"), **kw)
+    kw["group"] = xt.Grouper("time.dayofyear", window=31)
+    ref = xt.QuantileDeltaMapping.train(pk(xt, tj, data[0], "ref"), pk(xt, tj, data[1], "hist"), **kw)
+    af = port.ds["af"].data.numpy()
+    assert (np.isnan(af).any(axis=-1) & ~np.isnan(af).all(axis=-1)).any(), "no table with a NaN factor inside"
+    seen = []
+
+    def spy(*args):
+        seen.append(args[-1])
+        return k.interp_table_3d(*args)
+
+    monkeypatch.setattr(tinterp, "interp_table_3d", spy)
+    got = port.adjust(pk(xp, t, data[2], "sim"), interp=interp).data.numpy()
+    assert seen == [interp], "the adjust's lookup did not reach K1's wrapper"
+    want = np.asarray(ref.adjust(pk(xt, tj, data[2], "sim"), interp=interp).data)
+    assert np.isfinite(got).any() and np.isnan(got).any()
+    np.testing.assert_array_equal(got, want)

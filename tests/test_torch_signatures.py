@@ -39,8 +39,7 @@ ALLOWED = {
     ("ops.pallas.interp_kernel", None, None): "Pallas K1 / K2; ported as csrc/interp_kernel.cu behind ops/cuda/interp_kernel.py",
     ("ops.pallas.merge_kernel", None, None): "Pallas K3-K6; ported as csrc/merge_kernel.cu behind ops/merge.py",
     ("ops.pallas.sort_kernel", None, None): "Pallas K7; ported as csrc/sort_kernel.cu behind ops/sort.py",
-    ("parallel", None, None): "the multi-device layer waits for a machine with more than one card (ROADMAP A11)",
-    ("parallel.mesh", None, None): "the multi-device layer waits for a machine with more than one card (ROADMAP A11)",
+    ("parallel.dryrun", None, None): "the port's dry run of its parallel layer over spawned ranks (the reference's is in __graft_entry__)",
     ("ops.cuda", None, None): "the port's kernel wrappers and their build (the JAX package's are ops/pallas)",
     ("ops.cuda.emit_kernel", None, None): "the selection engine's dense emission as a CUDA kernel and its plain twin (plain JAX in the reference)",
     ("ops.cuda.fma_kernel", None, None): "x * y + z rounded once: XLA contracts it in the reference's compiled programs (C9)",

@@ -25,8 +25,11 @@ properties: marginal moments and quantiles, spell lengths, annual cycles,
 trends, GEV return values, inter-variable and inter-site correlations) and
 ``measures`` (bias, relative bias, circular bias, ratio, RMSE, MAE, the
 annual-cycle correlation, the spatial correlation ratio and the Taylor
-diagram), over ``ops/fitting.py``'s batched GEV fits and regressions
-(ROADMAP.md lists the modules still to port).
+diagram), over ``ops/fitting.py``'s batched GEV fits and regressions.
+``parallel`` is the multi-device layer: a device mesh over the ranks of a
+``torch.distributed`` process group (NCCL on CUDA, gloo on the CPU), inputs
+sharded by site, and the spatial diagnostics' and the multivariate
+rotation's collectives.
 """
 
 from . import detrending, measures, processing, properties

@@ -41,6 +41,18 @@
 //   compares false, to 128 entries.  It gives the count loop's number on
 //   every input: ties, v = +-inf (the +inf pads count), NaN v (0), nvalid 0,
 //   1, 2, nq 1.  The bracketing nodes then come as two 8-byte (x, y) loads.
+// - Tables out of order.  The grouped adjust lays a quantile-trained table
+//   whose factor is NaN at some quantile (kind="*" on dry days: 0 / 0) out
+//   with a +inf hole there, so its nodes are not ascending; the twin's count
+//   loop counts nodes by value and takes the segment by position.  The
+//   staging notes whether any two neighbouring nodes of a row are out of
+//   order (NaN sorting last), a warp vote for a warp's row and a block vote
+//   for a block's, and only such a row has its probe nodes ranked by value
+//   (stable, NaN last) before the search, by one warp, while its (x, y)
+//   pairs and the two extrapolation edges (x[0] and x[nvalid - 1], the
+//   twin's) stay by position.  A holey row is ranked with ballots (see
+//   `rank_nodes`); any other disorder with nq comparisons a node.  An
+//   ordered row takes no further pass.
 // - Long rows: one block per 4096-value tile of a row, 16-byte loads and
 //   stores, four values a thread a step, two steps in flight.  Row starts
 //   are not 16-byte aligned in general (rows of 4650 or 54750 values), so a
@@ -88,8 +100,30 @@ constexpr int kWarpRows = kThreads / 32;
 constexpr int kBracketAdmitSmem = 48 * 1024;
 constexpr int kBracketAdmitTable = 1056;
 
+// the nodes' order for the search: by value, NaN after every number
+__device__ __forceinline__ bool sorts_before(float a, float b) { return a < b || (!isnan(a) && isnan(b)); }
+__device__ __forceinline__ bool same_key(float a, float b) { return a == b || (isnan(a) && isnan(b)); }
+
+// whether node k + 1 of x[0 .. nq) sorts before node k
+__device__ __forceinline__ bool out_of_order(const float* x, int k, int nq) {
+  return k + 1 < nq && sorts_before(x[k + 1], x[k]);
+}
+
+// the stable rank of node k among the nq nodes x[j * stride] by value, NaN
+// last: the nodes that sort before it and its equals at lower positions
+__device__ __forceinline__ int value_rank(const float* x, int stride, int nq, int k) {
+  const float xk = x[k * stride];
+  int rank = 0;
+  for (int j = 0; j < nq; ++j) {
+    const float xj = x[j * stride];
+    rank += sorts_before(xj, xk) || (j < k && same_key(xj, xk));
+  }
+  return rank;
+}
+
 // One table in shared memory, evaluated at val: x[0 .. kProbes) its nodes
-// for the probes (NaN past nq); xy[0 .. nq] its (x, y) pairs, the last one
+// for the probes, ascending (by value where the table is out of order; NaN
+// past nq); xy[0 .. nq] its (x, y) pairs, the last one
 // the pair of a bracket that starts on the last node (x = +inf,
 // y = y[nq - 1]); edge = (x_first, y_first, x_last, y_last); nv its valid
 // count.
@@ -126,13 +160,67 @@ __device__ __forceinline__ float lookup(float val, const float* x, const float2*
 }
 
 // Stage the table (xs, ys)[0 .. nq) into x[0 .. kProbes) and xy[0 .. nq],
-// thread `lane` of `width` taking every width-th entry.  The caller
-// synchronises before any thread reads them.
-__device__ __forceinline__ void stage_table(const float* __restrict__ xs, const float* __restrict__ ys, int nq,
+// thread `lane` of `width` taking every width-th entry.  Returns whether
+// this thread found a node that sorts before the one above it (the nodes'
+// order is by value, NaN last).  The caller synchronises before any thread
+// reads them.
+__device__ __forceinline__ bool stage_table(const float* __restrict__ xs, const float* __restrict__ ys, int nq,
                                             float* x, float2* xy, int lane, int width) {
-  for (int k = lane; k < kProbes; k += width) x[k] = k < nq ? xs[k] : NAN;
+  bool unsorted = false;
+  for (int k = lane; k < kProbes; k += width) {
+    const float xk = k < nq ? xs[k] : NAN;
+    x[k] = xk;
+    unsorted |= out_of_order(xs, k, nq);
+  }
   for (int k = lane; k <= nq; k += width) {
     xy[k] = k < nq ? make_float2(xs[k], ys[k]) : make_float2(INFINITY, ys[nq - 1]);
+  }
+  return unsorted;
+}
+
+// A staged table's probe nodes x[0 .. nq) by value (stable, NaN last),
+// ranked by one warp (lane 0 .. 31) from its positional pairs xy, which
+// stay as they are: the descent in `lookup` then counts the nodes <= val,
+// as the twin's count loop does, and the segment is taken by position.
+// The grouped adjust's out-of-order rows are ascending numbers with +inf
+// holes (ops/interp.py:_compact_sorted_tables).  Where a row's numbers
+// (nodes neither +inf nor NaN) do not descend by position, their stable
+// order is by position and every +inf node and then every NaN node sorts
+// after them, so a node's rank is a count of set bits in the warp's
+// ballots of the three classes.  Any other row takes `value_rank`.  A lane
+// holds nodes lane and lane + 32 (nq <= 64).  The caller synchronises the
+// warp before this, and the row's readers after it.
+__device__ void rank_nodes(int nq, float* x, const float2* xy, int lane) {
+  const float* px = &xy[0].x;  // node j at px[2 j]
+  float key[2];
+  unsigned long long num = 0, inf = 0;  // the numbers' and the +inf nodes' positions
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int k = lane + 32 * h;
+    key[h] = k < nq ? px[2 * k] : NAN;
+    num |= static_cast<unsigned long long>(__ballot_sync(0xffffffffu, key[h] < INFINITY)) << (32 * h);
+    inf |= static_cast<unsigned long long>(__ballot_sync(0xffffffffu, key[h] == INFINITY)) << (32 * h);
+  }
+  bool descends = false;  // a number below the number before it
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const unsigned long long before = num & ((1ull << (lane + 32 * h)) - 1);
+    if (key[h] < INFINITY && before != 0) descends |= key[h] < px[2 * (63 - __clzll(before))];
+  }
+  if (__any_sync(0xffffffffu, descends)) {
+    for (int k = lane; k < nq; k += 32) x[value_rank(px, 2, nq, k)] = px[2 * k];
+    return;
+  }
+  const int n_num = __popcll(num), n_inf = __popcll(inf);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int k = lane + 32 * h;
+    const unsigned long long below = (1ull << k) - 1;
+    const float xk = key[h];
+    const int rank = xk < INFINITY    ? __popcll(num & below)
+                     : xk == INFINITY ? n_num + __popcll(inf & below)
+                                      : n_num + n_inf + __popcll(~(num | inf) & below);
+    if (k < nq) x[rank] = xk;
   }
 }
 
@@ -164,8 +252,22 @@ interp_rows_kernel(const float* __restrict__ v, const float* __restrict__ xs, co
   const int lane = threadIdx.x % kWidth;
   const long long row = static_cast<long long>(blockIdx.x) * kRows + sub;
   const bool live = row < rows;
-  if (live) stage_table(xs + row * nq, ys + row * nq, nq, sx[sub], sxy[sub], lane, kWidth);
-  __syncthreads();
+  bool unsorted = live && stage_table(xs + row * nq, ys + row * nq, nq, sx[sub], sxy[sub], lane, kWidth);
+  // whether the row's nodes are out of order, a block vote for a block's
+  // row and a warp vote for a warp's (a warp's lanes share their row), and
+  // only then its probe nodes ranked by value, by the row's first warp
+  if constexpr (kRows == 1) {
+    if (__syncthreads_or(unsorted)) {  // also the staging's barrier
+      if (threadIdx.x < 32) rank_nodes(nq, sx[0], sxy[0], threadIdx.x);
+      __syncthreads();
+    }
+  } else {
+    if (live && __any_sync(0xffffffffu, unsorted)) {
+      __syncwarp();
+      rank_nodes(nq, sx[sub], sxy[sub], lane);
+    }
+    __syncthreads();
+  }
   if (!live) return;
 
   const int nv = nvalid[row];
@@ -266,10 +368,6 @@ __device__ __forceinline__ float4 lds4(unsigned a) {
   return x;
 }
 
-// the nodes' order for the search: by value, NaN after every number
-__device__ __forceinline__ bool sorts_before(float a, float b) { return a < b || (!isnan(a) && isnan(b)); }
-__device__ __forceinline__ bool same_key(float a, float b) { return a == b || (isnan(a) && isnan(b)); }
-
 // the interpolation of `lookup` given the segment record s; `finite` is
 // isfinite(val).  The division stays behind its condition, as in `lookup`:
 // a branch that most warps take whole measured faster on the H100 than
@@ -343,7 +441,7 @@ interp_bracketed_kernel(const float* __restrict__ v, const float* __restrict__ x
     const int tb = item / nq, k = item - tb * nq;
     const float x = txs[item];
     ey[tb * E::kStride + k] = x;
-    if (k + 1 < nq) unsorted |= sorts_before(txs[item + 1], x);
+    unsorted |= out_of_order(txs + tb * nq, k, nq);
   }
   for (int tb = threadIdx.x / 32; tb < gp; tb += kBrThreads / 32) {
     const int lane = threadIdx.x % 32;
@@ -365,11 +463,7 @@ interp_bracketed_kernel(const float* __restrict__ v, const float* __restrict__ x
   if (permuted) {
     for (int item = threadIdx.x; item < gp * nq; item += kBrThreads) {
       const int tb = item / nq, k = item - tb * nq;
-      const float* x = ey + tb * E::kStride;
-      const float xk = x[k];
-      int rank = 0;
-      for (int j = 0; j < nq; ++j) rank += sorts_before(x[j], xk) || (j < k && same_key(x[j], xk));
-      inv[tb * 4 * nrec + rank] = k;
+      inv[tb * 4 * nrec + value_rank(ey + tb * E::kStride, 1, nq, k)] = k;
     }
     __syncthreads();
   }
