@@ -1,6 +1,10 @@
 """Smoke run of the PyTorch/CUDA port (``xsdba_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--merge-against LABEL=SOURCE[,NVCC_FLAG...]]...
+
+``--merge-against`` builds another ``merge_kernel.cu`` (another commit's,
+or this one with other flags) and phase 6 times its merge kernels in turns
+with this checkout's (:func:`merge_against`).
 
 Phases, each reported on lines of its own:
 
@@ -31,8 +35,11 @@ Phases, each reported on lines of its own:
    (ref and hist of 256 sites), K3 also on its rows cut to 32 values and
    padded with +inf to 1024 (the warp sort at 1 and 32 values a lane) and
    to 2048 (the long-row variant), and the per-group merge (K4) on the
-   window-5 path's slab, each printing how many values differ under ``==``
-   (-0.0 equals +0.0); the key–payload row sort (K7) on the selection
+   window-5 path's slab, and every merge kernel again on slabs of dry-day
+   pr, 45 % of the days ±0.0 (:func:`merge_tie_diffs`: K3 in f32, f64
+   and long rows, K5 and K6 at window 31, K4 at window 5), each printing
+   how many values differ by bit pattern (ROADMAP C32: the kernels and the
+   twins order -0.0 below +0.0); the key–payload row sort (K7) on the selection
    path's stage-1 input (ref and hist of 224 sites, [448, 54750] ->
    [448, 65536]), on one row of 2^20, on rows with ties, +-0.0 and +inf,
    at a tile less one, a tile and a tile and one, and on all-equal rows,
@@ -72,7 +79,8 @@ Phases, each reported on lines of its own:
    (:func:`c31_phase`): a dayofyear + 31 QDM, ``kind="*"``, on numpy
    dry-day pr of 512 sites x 150 years, adjusted with ``nearest`` and
    ``linear`` through K1 on tables with +inf holes, the first 8 sites'
-   scen equal to the CPU port's by bit pattern;
+   trained factors (ROADMAP C32) and scen equal to the CPU port's by bit
+   pattern;
 5. heavy: ``EmpiricalQuantileMapping.train(group="time.dayofyear",
    window=31).adjust(interp="linear")`` on CUDA tensors of 256 sites x 150
    noleap years (``bench.py``'s heavy data: seed 1, ref ~ N(10, 2), hist ~
@@ -233,7 +241,9 @@ Phases, each reported on lines of its own:
    levels; fma's is ``torch.addcmul``, timed in turns with the kernel), K1 also on the monthly
    partition's long rows, fma also on same-shape operands and in float64,
    K3's long-row variant at m = 2048, K1 on tables with +inf holes beside
-   the same values on ordered tables (each method, in turns), the peak device memory of
+   the same values on ordered tables (each method, in turns), with
+   ``--merge-against`` the merge kernels of each other build in turns with
+   this checkout's (:func:`merge_against`), the peak device memory of
    the heavy and selection steps and of the heavy public call, the MBCn-a
    and MBCn-b train steps (``_mbcn_train_block``; MBCn-b's on its first
    chunk of blocks) in training iterations/s with their peak memory, the
@@ -268,11 +278,15 @@ script exits with code 2 and prints no result.
 
 from __future__ import annotations
 
+import argparse
+import ctypes
 import json
+import re
 import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -1109,6 +1123,130 @@ def _unstable_nan_quantile(x, quantiles, axis=-1, alpha=1.0, beta=1.0, fused=Tru
     return quant._quantile_on_sorted(torch.sort(x, dim=-1).values, (~torch.isnan(x)).sum(dim=-1), q, alpha, beta, fused=fused)
 
 
+def merge_tie_slabs(n_sites, n_years, device):
+    """The merge engine's unsorted slabs of :func:`dry_day_problem`'s ref and
+    hist (30 % and 45 % of the days ±0.0), as the heavy path builds them:
+    {window: (slab [2 * n_sites, Dp, 256] f32, groups, ymax, levels)} at
+    windows 31 and 5."""
+    t, (ref, hist, _) = dry_day_problem(n_sites, n_years)
+    x = torch.from_numpy(np.stack([ref, hist])).to(device)
+    out = {}
+    for window in (HEAVY_WINDOW, SMALL_WINDOW):
+        plan = xp.Grouper("time.dayofyear", window=window).indexes(t).merge_plan
+        slab, _, L = merge_slab(x, plan)
+        out[window] = (slab, plan.w1_gather.shape[0] - 2 * plan.half, plan.w1_gather.shape[1], L)
+    return out
+
+
+def build_merge_library(label, spec):
+    """The merge kernels of another source, bound as ``ops/merge.py`` binds
+    its own: ``spec`` is ``SOURCE[,NVCC_FLAG...]``, a ``merge_kernel.cu``
+    (its headers beside it) built with the port's nvcc flags and the extra
+    ones into the build directory."""
+    source, *flags = spec.split(",")
+    lib = _build._build_dir() / f"libxsdba_merge_against_{re.sub(r'[^A-Za-z0-9_]', '_', label)}.so"
+    lib.parent.mkdir(parents=True, exist_ok=True)
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, *flags, "-o", str(lib), str(Path(source).resolve())], check=True)
+    out = ctypes.CDLL(str(lib))
+    for fn, (args, res) in merge._SIGNATURES.items():
+        getattr(out, fn).argtypes = args
+        getattr(out, fn).restype = res
+    return out
+
+
+def _merge_through(lib, fn):
+    """``fn`` with ``ops/merge.py``'s wrappers launching ``lib``'s kernels."""
+    def run():
+        own = merge._library
+        merge._library = lambda: lib
+        try:
+            return fn()
+        finally:
+            merge._library = own
+    return run
+
+
+def merge_tie_diffs(tie_slabs, f64_rows=64):
+    """Values of each merge kernel on :func:`merge_tie_slabs` that differ from
+    its twin's by bit pattern (ROADMAP C32: the twins order ±0.0 by IEEE
+    totalOrder, as the reference's Pallas kernels do): K3 (the warp sort in
+    f32 and, on the first ``f64_rows`` rows, f64; the long-row variant at
+    2048 values), K5 and K6 at window 31, K4 at window 5, each kernel fed
+    its twin's input."""
+    out = {"K3": 0, "K4": 0, "K5": 0, "K6": 0}
+    n_diff = lambda a, b: int((_bits(a) != _bits(b)).sum())  # noqa: E731
+    for window, (slab, G, ymax, L) in tie_slabs.items():
+        for rows in (slab, slab[:f64_rows].double().contiguous()):
+            for width in (rows.shape[-1], 2048):
+                x = widened(rows[:f64_rows], width) if width != rows.shape[-1] else rows
+                out["K3"] += n_diff(merge.sort_rows_alternating(x), merge.sort_rows_alternating_reference(x))
+            ordered = merge.sort_rows_alternating_reference(rows)
+            if L:
+                levels = merge.build_levels_reference(ordered, L)
+                out["K5"] += n_diff(merge.build_levels(ordered, L), levels)
+                got = merge.fold_windows(ordered, levels, window, G, ymax=ymax)
+                out["K6"] += n_diff(got, merge.fold_windows_reference(ordered, levels, window, G, got.shape[-1]))
+            else:
+                got = merge.merged_window_rows(ordered, window, G, ymax=ymax)
+                out["K4"] += n_diff(got, merge.merged_window_rows_reference(ordered, window, G, got.shape[-1]))
+    torch.cuda.synchronize()
+    return out
+
+
+def merge_against(smi, others, slab, L, G, ymax, ordered5):
+    """Each build of ``others`` ({label: spec}, :func:`build_merge_library`)
+    against this checkout's merge kernels: the kernels timed in turns at the
+    heavy path's shapes (K3 on its slab in f32 and f64, K5 and K6 at window
+    31, K4 at window 5: 7 rounds, the order reversed every other round, a
+    sample the mean of 10 calls queued behind a spin of the card), each
+    build's values on :func:`merge_tie_slabs` that differ from the twins by
+    bit pattern, and phase 4e's public dry-day ``kind="*"`` QDM train
+    (:func:`c31_phase`) through each build, its first CHECK_SITES sites'
+    factors against the CPU port's by bit pattern.  Prints each and returns
+    {label: {...}}."""
+    builds = {"this": merge._library()}
+    for label, spec in others.items():
+        builds[label] = build_merge_library(label, spec)
+        print(f"[merge-against] built {label} from {spec}", flush=True)
+    slab64 = slab.double()
+    ordered = merge.sort_rows_alternating(slab)
+    levels = merge.build_levels(ordered, L)
+    calls = {
+        "K3 f32": lambda: merge.sort_rows_alternating(slab),
+        "K3 f64": lambda: merge.sort_rows_alternating(slab64),
+        "K5": lambda: merge.build_levels(ordered, L),
+        "K6": lambda: merge.fold_windows(ordered, levels, HEAVY_WINDOW, G, ymax=ymax),
+        "K4": lambda: merge.merged_window_rows(ordered5, SMALL_WINDOW, G, ymax=ymax),
+    }
+    shapes = {"K3 f32": tuple(slab.shape), "K3 f64": tuple(slab.shape), "K5": f"{tuple(ordered.shape)} L={L}",
+              "K6": f"{tuple(ordered.shape)} w={HEAVY_WINDOW}", "K4": f"{tuple(ordered5.shape)} w={SMALL_WINDOW}"}
+    res = {label: {} for label in builds}
+    for k, fn in calls.items():
+        turns = _steps_in_turns({label: _merge_through(lib, fn) for label, lib in builds.items()}, reps=7, batch=KERNEL_BATCH)
+        for label, sm in turns.items():
+            res[label][k] = {"median_ms": sm["median_ms"], "spread": sm["spread"]}
+        print(f"[merge-against] {k} {shapes[k]} in turns: " + "; ".join(
+            f"{label} {_fmt(sm)} ({sm['median_ms'] / turns['this']['median_ms']:.3f} of this)" for label, sm in turns.items()) + f" [{smi}]", flush=True)
+    del slab64, ordered, levels
+    t, (ref_np, hist_np, _) = dry_day_problem(N_SITES, N_YEARS)
+    group = xp.Grouper("time.dayofyear", window=HEAVY_WINDOW)
+    train = lambda r, h: xp.QuantileDeltaMapping.train(_pr_da(r, t, "ref"), _pr_da(h, t, "hist"), kind="*", group=group, nquantiles=NQ)  # noqa: E731
+    with xp.set_options(device="cpu", selection_backend=False):
+        want = train(ref_np[:CHECK_SITES], hist_np[:CHECK_SITES]).ds["af"].data
+    tie_slabs = merge_tie_slabs(HEAVY_SITES, HEAVY_YEARS, slab.device)
+    for label, lib in builds.items():
+        res[label]["tie values differing from the twins"] = _merge_through(lib, lambda: merge_tie_diffs(tie_slabs))()
+        af = _merge_through(lib, lambda: train(ref_np, hist_np).ds["af"].data[:CHECK_SITES].cpu())()
+        moved = (_bits(af) != _bits(want)) & ~(torch.isnan(af) & torch.isnan(want))
+        res[label]["C32 factors"] = {"differ": int(moved.sum()), "of": af.numel(),
+                                     "infinities of the other sign": int((moved & torch.isinf(af) & (af == -want)).sum())}
+        print(f"[merge-against] {label}: merge-kernel values on ±0.0 tie slabs differing from the twins by bit pattern "
+              f"{res[label]['tie values differing from the twins']}; public dry-day kind=* dayofyear+{HEAVY_WINDOW} QDM, "
+              f"first {CHECK_SITES} sites' trained factors vs the CPU port: {res[label]['C32 factors']}", flush=True)
+    print(f"[merge-against] {json.dumps(res)}", flush=True)
+    return res
+
+
 def _compare_sort(label, key, lab):
     """K7 against its twin: keys under ``==`` and the pair multisets."""
     got_k, got_l = sort.sort_rows_with_payload(key, lab)
@@ -1704,8 +1842,9 @@ def c31_phase(dev):
     factors are NaN at the low quantiles (0 / 0), so the adjust's tables
     carry +inf holes and K1 looks values up in them; on the card, with
     ``nearest`` (QDM's default) and ``linear``.  The first CHECK_SITES
-    sites' ``scen`` is held to the CPU port's (on the merge engine, the
-    card's) by bit pattern.  Returns {interp: K1 launches of the adjust}."""
+    sites' trained factors (ROADMAP C32) and ``scen`` are held to the CPU
+    port's (on the merge engine, the card's) by bit pattern.  Returns
+    {interp: K1 launches of the adjust}."""
     t, (ref_np, hist_np, sim_np) = dry_day_problem(N_SITES, N_YEARS)
     group = xp.Grouper("time.dayofyear", window=HEAVY_WINDOW)
     train = lambda r, h: xp.QuantileDeltaMapping.train(_pr_da(r, t, "ref"), _pr_da(h, t, "hist"), kind="*", group=group, nquantiles=NQ)  # noqa: E731
@@ -1716,13 +1855,11 @@ def c31_phase(dev):
     af = qdm.ds["af"].data
     holes = int((torch.isnan(af).any(dim=-1) & ~torch.isnan(af).all(dim=-1)).sum())
     assert af.device.type == torch.device(dev).type and holes > 0, "no trained table with a NaN factor inside"
-    # the trained factors against the CPU port's, by bit pattern: printed, not
-    # held (the merge kernels may place ±0.0 ties otherwise than the twins,
-    # ROADMAP C3), split into zeros and infinities of the other sign and the rest
-    a, b = af[cut].cpu(), qdm_cpu.ds["af"].data
-    moved = (_bits(a) != _bits(b)) & ~(torch.isnan(a) & torch.isnan(b))
-    af_diff = (f"{int(moved.sum())} of {a.numel()} (zeros of the other sign {int((moved & (a == 0) & (b == 0)).sum())}, "
-               f"infinities of the other sign {int((moved & torch.isinf(a) & (a == -b)).sum())})")
+    # the trained factors against the CPU port's, by bit pattern (ROADMAP
+    # C32: the merge kernels and their twins order ±0.0 alike, by IEEE
+    # totalOrder, so every factor of 0 / 0, x / ±0.0 and ±0.0 / x matches)
+    _compare_bits(f"C32 public dayofyear+{HEAVY_WINDOW} QDM kind=* trained factors, first {CHECK_SITES} sites vs the CPU port",
+                  af[cut].cpu(), qdm_cpu.ds["af"].data)
     out = {}
     for interp in ("nearest", "linear"):
         torch.cuda.synchronize()
@@ -1736,7 +1873,7 @@ def c31_phase(dev):
         got = scen[cut].cpu()
         print(f"[c31] public dayofyear+{HEAVY_WINDOW} QDM kind=* interp={interp} on dry-day pr {tuple(scen.shape)}: {holes} trained tables "
               f"with a NaN factor inside; launches {counts}; first {CHECK_SITES} sites: {int(torch.isnan(got).sum())} NaN, "
-              f"{int(torch.isinf(got).sum())} infinities; trained factors differing from the CPU port's by bit pattern: {af_diff}", flush=True)
+              f"{int(torch.isinf(got).sum())} infinities", flush=True)
         _compare_bits(f"C31 public dayofyear+{HEAVY_WINDOW} QDM kind=* interp={interp}, first {CHECK_SITES} sites vs the CPU port", got, want)
         out[interp] = counts["interp_table_3d"]
     return out
@@ -2185,7 +2322,19 @@ def parallel_phase(dev, smi):
     return walls
 
 
-def main() -> int:
+def _parse(argv):
+    ap = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.")
+    ap.add_argument("--merge-against", action="append", default=[], metavar="LABEL=SOURCE[,NVCC_FLAG...]",
+                    help="time another merge_kernel.cu's kernels in turns with this checkout's (phase 6)")
+    args = ap.parse_args(argv)
+    bad = [spec for spec in args.merge_against if "=" not in spec.split(",")[0]]
+    if bad:
+        ap.error(f"--merge-against takes LABEL=SOURCE[,NVCC_FLAG...], got {bad}")
+    return {spec.split("=", 1)[0]: spec.split("=", 1)[1] for spec in args.merge_against}
+
+
+def main(argv=None) -> int:
+    merge_others = _parse(argv)
     # 1. device
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs an NVIDIA GPU", file=sys.stderr)
@@ -2356,43 +2505,51 @@ def main() -> int:
     G = plan.w1_gather.shape[0] - 2 * plan.half
     slab, _, L = merge_slab(torch.stack([href, hhist]), plan)
     ymax = plan.w1_gather.shape[1]
-    err["K3"] = _compare("K3 row sort (warp)", merge.sort_rows_alternating(slab), merge.sort_rows_alternating_reference(slab))
+    err["K3"] = _compare_bits("K3 row sort (warp)", merge.sort_rows_alternating(slab), merge.sort_rows_alternating_reference(slab))
     # the warp sort at 1 and 32 values a lane, and the long-row variant:
     # the heavy slab's rows cut to 32 values, padded with +inf to 1024, 2048
     for width in (32, 1024, 2048):
         wide = widened(slab, width)
         variant = "warp" if merge.row_sort_in_warp(width) else "long-row variant"
-        err["K3"] = max(err["K3"], _compare(f"K3 row sort m={width} ({variant})", merge.sort_rows_alternating(wide), merge.sort_rows_alternating_reference(wide)))
+        err["K3"] = max(err["K3"], _compare_bits(f"K3 row sort m={width} ({variant})", merge.sort_rows_alternating(wide), merge.sort_rows_alternating_reference(wide)))
         del wide
     ordered = merge.sort_rows_alternating(slab)
     assert merge.levels_in_shared(ordered.shape[-1], L, 4, merge.fold_smem_limit(torch.float32, dev))
     levels = merge.build_levels(ordered, L)
-    err["K5"] = _compare(f"K5 level build L={L} (shared memory)", levels, merge.build_levels_reference(ordered, L))
+    err["K5"] = _compare_bits(f"K5 level build L={L} (shared memory)", levels, merge.build_levels_reference(ordered, L))
     folded = merge.fold_windows(ordered, levels, HEAVY_WINDOW, G, ymax=ymax)
-    err["K6"] = _compare(f"K6 window fold w={HEAVY_WINDOW}", folded, merge.fold_windows_reference(ordered, levels, HEAVY_WINDOW, G, folded.shape[-1]))
+    err["K6"] = _compare_bits(f"K6 window fold w={HEAVY_WINDOW}", folded, merge.fold_windows_reference(ordered, levels, HEAVY_WINDOW, G, folded.shape[-1]))
     lead = slice(0, 16)  # the composed twins (sort, levels, fold) on the first 16 rows
     o16 = merge.sort_rows_alternating_reference(slab[lead].contiguous())
     composed = merge.fold_windows_reference(o16, merge.build_levels_reference(o16, L), HEAVY_WINDOW, G, folded.shape[-1])
-    err["K6"] = max(err["K6"], _compare("K3+K5+K6 against the composed twins, first 16 rows", folded[lead], composed))
+    err["K6"] = max(err["K6"], _compare_bits("K3+K5+K6 against the composed twins, first 16 rows", folded[lead], composed))
     del folded, composed, o16
     plan5 = xp.Grouper("time.dayofyear", window=SMALL_WINDOW).indexes(th).merge_plan
     slab5, _, _ = merge_slab(torch.stack([href, hhist]), plan5)
     ordered5 = merge.sort_rows_alternating(slab5)
     merged5 = merge.merged_window_rows(ordered5, SMALL_WINDOW, G, ymax=ymax)
-    err["K4"] = _compare(f"K4 per-group merge w={SMALL_WINDOW}", merged5, merge.merged_window_rows_reference(ordered5, SMALL_WINDOW, G, merged5.shape[-1]))
+    err["K4"] = _compare_bits(f"K4 per-group merge w={SMALL_WINDOW}", merged5, merge.merged_window_rows_reference(ordered5, SMALL_WINDOW, G, merged5.shape[-1]))
     del merged5
+    # ±0.0 ties (ROADMAP C32): every merge kernel on dry-day pr's slabs
+    ties = merge_tie_diffs(merge_tie_slabs(HEAVY_SITES, HEAVY_YEARS, dev))
+    print(f"[kernel] K3 (f32, f64, long rows), K4, K5, K6 on ±0.0 ties (dry-day pr, windows {HEAVY_WINDOW} and {SMALL_WINDOW}): "
+          f"values differing from the twins by bit pattern {ties}", flush=True)
+    assert not any(ties.values()), f"merge kernels and twins disagree on ±0.0 ties: {ties}"
     # the fold's second variant: f64, window 31, 900 values a row (223,200
-    # bytes, the merge rounds' second buffer in the output row)
+    # bytes, the merge rounds' second buffer in the output row), about 40 %
+    # of the values ±0.0
     big = np.random.default_rng(5).normal(0, 1, (2, 48, 1024))
+    big[np.random.default_rng(6).random(big.shape) < 0.3] = 0.0
+    big[np.random.default_rng(7).random(big.shape) < 0.15] = -0.0
     big[..., 900:] = np.inf
     big = merge.sort_rows_alternating(torch.from_numpy(big).to(dev))
     limit64 = merge.fold_smem_limit(torch.float64, dev)
     assert not merge.fold_scratch_in_shared(31 * 900, 8, limit64) and not merge.levels_in_shared(1024, L, 8, limit64)
     big_levels = merge.build_levels(big, L)
-    err["K5"] = max(err["K5"], _compare(f"K5 level build f64 L={L} m=1024 (merged in device memory)", big_levels, merge.build_levels_reference(big, L)))
-    _compare("K6 window fold f64 w=31 ymax=900 m=1024 (scratch in the output row)",
-             merge.fold_windows(big, big_levels, HEAVY_WINDOW, 3, ymax=900),
-             merge.merged_window_rows_reference(big, HEAVY_WINDOW, 3, HEAVY_WINDOW * 900))
+    err["K5"] = max(err["K5"], _compare_bits(f"K5 level build f64 L={L} m=1024 (merged in device memory)", big_levels, merge.build_levels_reference(big, L)))
+    _compare_bits("K6 window fold f64 w=31 ymax=900 m=1024 (scratch in the output row)",
+                  merge.fold_windows(big, big_levels, HEAVY_WINDOW, 3, ymax=900),
+                  merge.merged_window_rows_reference(big, HEAVY_WINDOW, 3, HEAVY_WINDOW * 900))
     del big, big_levels
     sth, sel_np = heavy_problem(SEL_SITES, HEAVY_YEARS)
     sref, shist, ssim = (torch.from_numpy(a).to(dev) for a in sel_np)
@@ -3013,6 +3170,8 @@ def main() -> int:
         lambda: merge.merged_window_rows(ordered5, SMALL_WINDOW, G, ymax=ymax),
         lambda: merge.merged_window_rows_reference(ordered5, SMALL_WINDOW, G, SMALL_WINDOW * ymax), **kb,
     )
+    if merge_others:
+        merge_against(smi, merge_others, slab, L, G, ymax, ordered5)
     # the nearest method: K1 on the windowed adjust's rows (its linear row's inputs), K2 on MBCn-b's ranks
     times["K1 nearest"] = _in_turns(lambda: interp_kernel.interp_table_3d(vh, xsh, ysh, nvh, "nearest"),
                                     lambda: interp_kernel.interp_table_3d_reference(vh, xsh, ysh, nvh, "nearest"), **kb)
@@ -3147,4 +3306,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -160,6 +160,13 @@ def _equal(a, b):
     return bool((a == b).all())
 
 
+def _bits_equal(a, b):
+    """Equal by bit pattern (-0.0 differs from +0.0): the merge kernels and
+    their twins order ±0.0 by IEEE totalOrder (ROADMAP C32)."""
+    ints = torch.int32 if a.dtype == torch.float32 else torch.int64
+    return a.shape == b.shape and a.dtype == b.dtype and bool((a.contiguous().view(ints) == b.contiguous().view(ints)).all())
+
+
 def _same_bits(a, b, run):
     """Each run of ``run`` consecutive values of ``a`` holds the bit patterns
     of the same run of ``b`` (a permutation: -0.0 and +0.0 kept apart)."""
@@ -176,7 +183,7 @@ def test_row_sort_matches_twin(cuda, dtype, B, Dp, m):
     got = merge.sort_rows_alternating(x)
     torch.cuda.synchronize()
     assert merge.launches["sort_rows_alternating"] == before + 1 and got.is_cuda
-    assert _equal(got, merge.sort_rows_alternating_reference(x))
+    assert _bits_equal(got, merge.sort_rows_alternating_reference(x))
 
 
 @pytest.mark.parametrize("case", ["values", "ties", "all inf"])
@@ -201,7 +208,7 @@ def test_row_sort_at_every_lane_width(cuda, dtype, m, case):
     got = merge.sort_rows_alternating(x)
     torch.cuda.synchronize()
     assert merge.launches["sort_rows_alternating"] == before + 1
-    assert _equal(got, merge.sort_rows_alternating_reference(x))
+    assert _bits_equal(got, merge.sort_rows_alternating_reference(x))
     assert _same_bits(got, x, m)
 
 
@@ -228,7 +235,7 @@ def test_level_build_in_one_launch(cuda, dtype, levels, m):
         torch.cuda.synchronize()
         assert merge.launches["build_levels"] == before + 1
         assert tuple(got.shape) == (2, levels, Dp, m)
-        assert _equal(got, merge.build_levels_reference(ordered, levels))
+        assert _bits_equal(got, merge.build_levels_reference(ordered, levels))
         assert all(_same_bits(got[:, k], ordered, (2 << k) * m) for k in range(levels))
 
 
@@ -240,12 +247,12 @@ def test_level_build_and_fold_match_twins(cuda, dtype, window, m, ymax):
     ordered = merge.sort_rows_alternating(_slab(3, Dp, m, ymax, seed=window, dtype=dtype, device=cuda))
     levels = merge.build_levels(ordered, L)
     torch.cuda.synchronize()
-    assert _equal(levels, merge.build_levels_reference(ordered, L))
+    assert _bits_equal(levels, merge.build_levels_reference(ordered, L))
     got = merge.fold_windows(ordered, levels, window, G, ymax=ymax)
     torch.cuda.synchronize()
     assert tuple(got.shape) == (3, G, window * ymax)
-    assert _equal(got, merge.fold_windows_reference(ordered, levels, window, G, window * ymax))
-    assert _equal(got, merge.merged_window_rows_reference(ordered, window, G, window * ymax))
+    assert _bits_equal(got, merge.fold_windows_reference(ordered, levels, window, G, window * ymax))
+    assert _bits_equal(got, merge.merged_window_rows_reference(ordered, window, G, window * ymax))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -257,7 +264,7 @@ def test_per_group_merge_matches_twin(cuda, window, dtype):
     got = merge.merged_window_rows(ordered, window, G, ymax=ymax)
     torch.cuda.synchronize()
     assert merge.launches["merged_window_rows"] == before + 1
-    assert _equal(got, merge.merged_window_rows_reference(ordered, window, G, window * ymax))
+    assert _bits_equal(got, merge.merged_window_rows_reference(ordered, window, G, window * ymax))
 
 
 def test_merge_wrappers_raise_past_their_limits(cuda):
@@ -272,7 +279,7 @@ def test_merge_wrappers_raise_past_their_limits(cuda):
     ordered = merge.sort_rows_alternating(_slab(1, 40, 2048, ymax, seed=2, device=cuda))
     got = merge.merged_window_rows(ordered, 31, 2, ymax=ymax)
     torch.cuda.synchronize()
-    assert _equal(got, merge.merged_window_rows_reference(ordered, 31, 2, 31 * ymax))
+    assert _bits_equal(got, merge.merged_window_rows_reference(ordered, 31, 2, 31 * ymax))
     with pytest.raises(ValueError, match="shared memory"):
         merge.merged_window_rows(ordered, 31, 2, ymax=ymax + 1)
 
@@ -288,13 +295,13 @@ def test_f64_window_31_of_900_values_runs(cuda, call):
     if call == "fold":
         assert not merge.levels_in_shared(m, L, 8, merge.fold_smem_limit(torch.float64, cuda))
         levels = merge.build_levels(ordered, L)
-        assert _equal(levels, merge.build_levels_reference(ordered, L))
+        assert _bits_equal(levels, merge.build_levels_reference(ordered, L))
         got = merge.fold_windows(ordered, levels, 31, G, ymax=ymax)
     else:
         got = merge.merged_window_rows(ordered, 31, G, ymax=ymax)
     torch.cuda.synchronize()
     assert tuple(got.shape) == (2, G, 31 * ymax)
-    assert _equal(got, merge.merged_window_rows_reference(ordered, 31, G, 31 * ymax))
+    assert _bits_equal(got, merge.merged_window_rows_reference(ordered, 31, G, 31 * ymax))
 
 
 def _tie_slab(B, Dp, m, ymax, seed, dtype, device):
@@ -316,11 +323,55 @@ def test_fold_and_merge_on_ties_and_signed_zeros(cuda, dtype, window):
     want = merge.merged_window_rows_reference(ordered, window, G, window * ymax)
     got = merge.merged_window_rows(ordered, window, G, ymax=ymax)
     torch.cuda.synchronize()
-    assert _equal(got, want)
+    assert _bits_equal(got, want)
     if window >= 9:
         got = merge.fold_windows(ordered, merge.build_levels(ordered, L), window, G, ymax=ymax)
         torch.cuda.synchronize()
-        assert _equal(got, want)
+        assert _bits_equal(got, want)
+
+
+def _in_total_order(rows, desc_odd=False):
+    """Each row ascends by IEEE totalOrder (-0.0 below +0.0); with
+    ``desc_odd`` the odd rows along dim -2 descend."""
+    keys = merge._ordered_keys(rows.contiguous())
+    up = keys[..., 1:] >= keys[..., :-1]
+    if desc_odd:
+        down = keys[..., 1:] <= keys[..., :-1]
+        odd = (torch.arange(rows.shape[-2], device=rows.device) % 2 == 1)[:, None]
+        up = torch.where(odd, down, up)
+    return bool(up.all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("window,m,ymax", [
+    (5, 64, 50),      # K4
+    (31, 64, 50),     # K5 and K6 in shared memory
+    (31, 1024, 900),  # f32: both in shared memory; f64: K5 in device memory, K6's second buffer the output row
+    (31, 2048, 60),   # K3's long-row variant
+])
+def test_merge_kernels_order_signed_zeros_by_total_order(cuda, dtype, window, m, ymax):
+    """ROADMAP C32: on rows of {-1, -0.0, +0.0, 1} (``_tie_slab``) every
+    merge kernel and variant puts -0.0 below +0.0 and equals its twin by bit
+    pattern: the row sort (K3: the warp sort in f32 and f64, the long-row
+    variant), the level build (K5, both variants), the fold (K6, both) and
+    the per-group merge (K4)."""
+    G, L = 3, merge.n_levels(window)
+    Dp = -(-(G - 1 + window) // 16) * 16
+    x = _tie_slab(2, Dp, m, ymax, seed=m + window, dtype=dtype, device=cuda)
+    ordered = merge.sort_rows_alternating(x)
+    torch.cuda.synchronize()
+    assert _bits_equal(ordered, merge.sort_rows_alternating_reference(x)) and _in_total_order(ordered, desc_odd=True)
+    want = merge.merged_window_rows_reference(ordered, window, G, window * ymax)
+    assert _in_total_order(want)
+    if window >= 9:
+        levels = merge.build_levels(ordered, L)
+        torch.cuda.synchronize()
+        assert _bits_equal(levels, merge.build_levels_reference(ordered, L))
+        got = merge.fold_windows(ordered, levels, window, G, ymax=ymax)
+    else:
+        got = merge.merged_window_rows(ordered, window, G, ymax=ymax)
+    torch.cuda.synchronize()
+    assert _bits_equal(got, want)
 
 
 # ------------------------------------------------------------- windowed EQM
@@ -624,6 +675,25 @@ def test_headline_core_keeps_the_sign_of_zero(cuda, kind):
                                      torch.as_tensor(q, dtype=torch.float32, device=device), kind=kind, interp="linear", extrapolation="constant")
 
     assert _same_bits_or_nan(core(cuda).cpu(), core("cpu"))
+
+
+@pytest.mark.parametrize("calendar", ["noleap", "standard"])
+def test_public_dry_day_factors_equal_the_cpu_merge_engine(cuda, calendar):
+    """ROADMAP C32: a public ``kind="*"`` dayofyear + 31 QDM train on dry-day
+    pr (``chip_smoke.dry_day_problem``'s recipe, ±0.0 on 45 % of the days)
+    runs the merge kernels on the card; its factors, infinities of either
+    sign among them, equal the CPU merge engine's (the twins) by bit
+    pattern, any NaN equal to any NaN."""
+    _, data = dry_day_problem(6, 8)
+    t = xp.date_range("2000-01-01", periods=data[0].shape[-1], freq="D", calendar=calendar)
+    pr = lambda a, name: xp.DataArray(a, ("site", "time"), {"time": t}, {"units": "mm/d"}, name)  # noqa: E731
+    kw = dict(kind="*", group=xp.Grouper("time.dayofyear", window=31), nquantiles=50)
+    before = merge.launches["fold_windows"]
+    got = xp.QuantileDeltaMapping.train(pr(data[0], "ref"), pr(data[1], "hist"), **kw).ds["af"].data
+    assert got.is_cuda and merge.launches["fold_windows"] > before
+    with xp.set_options(device="cpu", selection_backend=False):
+        want = xp.QuantileDeltaMapping.train(pr(data[0], "ref"), pr(data[1], "hist"), **kw).ds["af"].data
+    assert bool(torch.isinf(want).any()) and _same_bits_or_nan(got.cpu(), want)
 
 
 @pytest.mark.parametrize("T", [30, 4650])

@@ -23,6 +23,18 @@
 // The fold writes [B, G, window·ymax]: group g's window rows [g, g + window)
 // merged ascending, +inf past the data.
 //
+// Order.  Every kernel orders by IEEE totalOrder, -0.0 below +0.0 (no NaN
+// reaches them), as the Pallas kernels' min/max networks do, so equal values
+// are equal bit patterns and no order among ties can show in an output.  The
+// warp sort gets it from FMNMX in f32 and from order_zeros in f64; the
+// long-row sort and the merges compare keys (order_key): a value's bit
+// pattern as a signed integer with a negative value's magnitude bits
+// inverted, whose integer order is totalOrder.  The
+// merges (K4, K5, K6) see only bit patterns (templated on int or long long):
+// they turn a value into its key once where they stage it and back once
+// where they store it, and merge keys with integer compares, no more
+// instructions than a float compare.
+//
 // Bound.  The Pallas kernels are compare-exchange networks sized for VMEM
 // and the VPU's roll/iota lanes.  On Hopper the scarce things are a block's
 // shared memory and its synchronisations, and all three kernels here are
@@ -46,12 +58,13 @@
 //
 // The level build takes one block per (batch row, aligned run of 2^L slab
 // rows) and builds all L levels of it in one launch: the 2^L rows are
-// staged (cp.async, odd rows read from their end), then level k merges
+// staged as keys (cp.async, odd rows read from their end, then a pass that
+// keys what each thread staged), then level k merges
 // each aligned pair of 2^k·m-value runs by merge path (each thread a
 // contiguous range of outputs, placed by one co-rank search, ties to the
 // left run), ping-ponging between two shared buffers, and each level leaves
-// shared memory in 16-byte stores.  So the slab is read once and each level
-// written once, the bytes its bound counts.  When the two buffers do not fit
+// shared memory in 16-byte stores, as bit patterns again.  So the slab is
+// read once and each level written once, the bytes its bound counts.  When the two buffers do not fit
 // in shared memory (f64 with m = 1024), the block merges in device memory:
 // level 0 reads the slab, level k the level k - 1 the same block has just
 // written (through a plain pointer, never the read-only path; the block's
@@ -62,18 +75,22 @@
 // inputs).  A rank merge there would cost every value a binary search in
 // every other segment (about 5 x 11 dependent shared loads a value) and a
 // store to a scattered slot.  So the fold merges by merge path: the
-// segments, staged with cp.async, are folded smallest first (4 steps at
-// window 31, moving 56 rows of values in all for the window's 31), each
+// segments, staged as keys (cp.async and a keying pass), are folded
+// smallest first (4 steps at window 31, moving 56 rows of values in all for
+// the window's 31), each
 // thread taking a contiguous range of a step's outputs, placed by one
 // co-rank search, then one comparison and one shared load per output with
 // no branch on the data; the finished row leaves shared memory in 16-byte
 // stores, so every store is coalesced.  What is left is instruction issue
-// in the steps (about 18 instructions an output a step).
+// in the steps (about 18 instructions an output a step): comparing keys
+// with integer compares adds none there, and order_key adds two
+// instructions a value where it is staged and two where it is stored.
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 #include <algorithm>
+#include <type_traits>
 
 #include "device_guard.cuh"
 
@@ -84,6 +101,22 @@ constexpr int kMaxSegments = 64;
 // the warp row sort: warps a block, and the longest row (32 values a lane)
 constexpr int kSortWarps = 8;
 constexpr int kWarpSortMax = 32 * 32;
+
+// The bit patterns of a float type as a signed integer type.
+template <typename T>
+struct BitsOf;
+template <>
+struct BitsOf<float> {
+  using type = int;
+};
+template <>
+struct BitsOf<double> {
+  using type = long long;
+};
+
+// A bit pattern's totalOrder key, and a key's bit pattern (its own inverse).
+__device__ __forceinline__ int order_key(int b) { return b ^ ((b >> 31) & 0x7fffffff); }
+__device__ __forceinline__ long long order_key(long long b) { return b ^ ((b >> 63) & 0x7fffffffffffffffLL); }
 
 template <typename T>
 struct Vec16;
@@ -100,6 +133,20 @@ struct Vec16<double> {
   static constexpr int n = 2;
   __device__ static double2 make(const double* v) { return make_double2(v[0], v[1]); }
   __device__ static void split(const double2& q, double* v) { v[0] = q.x, v[1] = q.y; }
+};
+template <>
+struct Vec16<int> {
+  using type = int4;
+  static constexpr int n = 4;
+  __device__ static int4 make(const int* v) { return make_int4(v[0], v[1], v[2], v[3]); }
+  __device__ static void split(const int4& q, int* v) { v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w; }
+};
+template <>
+struct Vec16<long long> {
+  using type = longlong2;
+  static constexpr int n = 2;
+  __device__ static longlong2 make(const long long* v) { return make_longlong2(v[0], v[1]); }
+  __device__ static void split(const longlong2& q, long long* v) { v[0] = q.x, v[1] = q.y; }
 };
 
 // ------------------------------------------------------------------ K3
@@ -123,10 +170,12 @@ __device__ __forceinline__ T keep(T mine, T theirs, bool lower) {
 
 // In float both are min/max instructions (FMNMX, the min or max picked by
 // a predicate): half the instructions of the compare and selects, and
-// Hopper's FMNMX orders -0.0 below +0.0, so the pair stays a permutation
-// (tests/test_torch_cuda.py holds the output's bit patterns to the
-// input's).  Double has no such instruction: fmin there costs more than
-// the compare and selects.
+// Hopper's FMNMX orders -0.0 below +0.0, which is totalOrder on values
+// that are never NaN (chip_smoke.py phase 3 and tests/test_torch_cuda.py
+// hold the output's bit patterns to the totalOrder twin's).  Double has no
+// such instruction (fmin costs more than the compare and selects), and its
+// < ties +-0.0, so a double row leaves the network with its zeros one run
+// in no order of sign, which order_zeros then puts in order.
 template <>
 __device__ __forceinline__ void order<float>(float& a, float& b) {
   const float lo = fminf(a, b);
@@ -148,6 +197,28 @@ __device__ __forceinline__ void lane_half_cleaners(T (&r)[VPT]) {
       if ((v & J) == 0) order(r[v], r[v | J]);
     lane_half_cleaners<J / 2>(r);
   }
+}
+
+// A row sorted as doubles, its +-0.0 tied: the zeros are one run, at
+// ascending positions [below, below + zeros) where below counts the
+// negative values; the run's first n_neg (the row's -0.0s) take -0.0 and
+// the rest +0.0, which is totalOrder.  Lane sub of a row's lanes holds
+// positions [sub·VPT, (sub + 1)·VPT); the two counts ride one warp sum over
+// the row's lanes (xor offsets below lanes stay inside them).  Some 4
+// instructions a value and log2(lanes) shuffles: comparing int64 keys in
+// every stage instead took 1.51x the double network's time on an H100
+// ([512, 400, 256]).
+template <int VPT>
+__device__ __forceinline__ void order_zeros(double (&r)[VPT], int sub, int lanes) {
+  int counts = 0;  // negative values, plus -0.0s << 16 (a row holds at most 1024)
+#pragma unroll
+  for (int v = 0; v < VPT; ++v)
+    counts += (r[v] < 0.0) + (r[v] == 0.0 && __double_as_longlong(r[v]) < 0 ? 1 << 16 : 0);
+  for (int d = 1; d < lanes; d <<= 1) counts += __shfl_xor_sync(0xffffffffu, counts, d);
+  const int split = (counts & 0xffff) + (counts >> 16);  // positions below it that are zero take -0.0
+#pragma unroll
+  for (int v = 0; v < VPT; ++v)
+    if (r[v] == 0.0) r[v] = sub * VPT + v < split ? -0.0 : 0.0;
 }
 
 // The merges of size K, 2K, ..., VPT inside a lane: each first pairs v with
@@ -173,7 +244,8 @@ __device__ __forceinline__ void lane_sort(T (&r)[VPT]) {
 // each lane's values into the mirror lane's slot.  Stages of stride below
 // VPT stay in a lane; the others are __shfl_xor_sync exchanges.  Every lane
 // of the warp runs every stage (the shuffles take the full mask); lanes
-// past the last row hold zeros and store nothing.
+// past the last row hold zeros and store nothing.  A double row's zeros
+// are put in order of sign after the network (order_zeros).
 template <typename T, int VPT>
 __global__ void __launch_bounds__(kSortWarps * 32)
 sort_rows_warp_kernel(const T* __restrict__ in, T* __restrict__ out, int rows, int m, int dp, bool aligned) {
@@ -223,6 +295,7 @@ sort_rows_warp_kernel(const T* __restrict__ in, T* __restrict__ out, int rows, i
     }
     lane_half_cleaners<VPT / 2>(r);
   }
+  if constexpr (std::is_same_v<T, double>) order_zeros(r, sub, lanes);
 
   if (!valid) return;
   const bool desc = (row % dp) & 1;
@@ -242,14 +315,15 @@ sort_rows_warp_kernel(const T* __restrict__ in, T* __restrict__ out, int rows, i
 
 // The long-row variant (rows of more than kWarpSortMax values): one block
 // per slab row, bitonic-sorted in shared memory, ascending for even rows
-// (row index within dp) and descending for odd ones.
-template <typename T>
-__global__ void sort_rows_alt_kernel(const T* __restrict__ in, T* __restrict__ out, int m, int dp) {
+// (row index within dp) and descending for odd ones.  K is the values' bit
+// type; the row is sorted as keys (keyed as staged, turned back as stored).
+template <typename K>
+__global__ void sort_rows_alt_kernel(const K* __restrict__ in, K* __restrict__ out, int m, int dp) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* s = reinterpret_cast<T*>(smem_raw);
+  K* s = reinterpret_cast<K*>(smem_raw);
   const long long row = blockIdx.x;
-  const T* src = in + row * m;
-  for (int i = threadIdx.x; i < m; i += blockDim.x) s[i] = src[i];
+  const K* src = in + row * m;
+  for (int i = threadIdx.x; i < m; i += blockDim.x) s[i] = order_key(src[i]);
   __syncthreads();
   const bool desc = (row % dp) & 1;
   const int pairs = m >> 1;
@@ -259,8 +333,8 @@ __global__ void sort_rows_alt_kernel(const T* __restrict__ in, T* __restrict__ o
         const int lo = ((p & ~(j - 1)) << 1) | (p & (j - 1));
         const int hi = lo + j;
         const bool up = ((lo & k) == 0) != desc;
-        const T a = s[lo];
-        const T b = s[hi];
+        const K a = s[lo];
+        const K b = s[hi];
         if (up ? (a > b) : (a < b)) {
           s[lo] = b;
           s[hi] = a;
@@ -269,33 +343,41 @@ __global__ void sort_rows_alt_kernel(const T* __restrict__ in, T* __restrict__ o
       __syncthreads();
     }
   }
-  T* dst = out + row * m;
-  for (int i = threadIdx.x; i < m; i += blockDim.x) dst[i] = s[i];
+  K* dst = out + row * m;
+  for (int i = threadIdx.x; i < m; i += blockDim.x) dst[i] = order_key(s[i]);
 }
 
 // Value at ascending position i of a run of n values stored ascending, or
 // descending when rev.
-template <typename T>
-__device__ __forceinline__ T at(const T* run, int i, int n, bool rev) {
+template <typename K>
+__device__ __forceinline__ K at(const K* run, int i, int n, bool rev) {
   return rev ? run[n - 1 - i] : run[i];
 }
 
-// A run of n values stored descending, read ascending.
-template <typename T>
-struct Reversed {
-  const T* p;
-  int n;
-  __device__ __forceinline__ T operator[](int i) const { return p[n - 1 - i]; }
+// A run of bit patterns in device memory, read as keys.
+template <typename K>
+struct Keyed {
+  const K* p;
+  __device__ __forceinline__ K operator[](int i) const { return order_key(p[i]); }
 };
 
-// Merge path of one pair of ascending runs a (na values) and b (nb values),
-// ties a first: writes outputs [k, k + count) of merge(a, b) to out.  One
-// co-rank search finds how many of the first k outputs come from a; then
-// one comparison and one load per output, the two heads held in registers,
-// with no branch on the data (the lanes of a warp never diverge).  a and b
-// are pointers, or Reversed runs.
-template <typename A, typename B, typename T>
-__device__ __forceinline__ void merge_range(A a, int na, B b, int nb, int k, int count, T* out) {
+// A run of n values stored descending, read ascending.
+template <typename A>
+struct Reversed {
+  A p;
+  int n;
+  __device__ __forceinline__ auto operator[](int i) const { return p[n - 1 - i]; }
+};
+
+// Merge path of one pair of ascending runs of keys a (na values) and b (nb
+// values), ties a first: writes outputs [k, k + count) of merge(a, b) to
+// out, as bit patterns again when kBitsOut.  One co-rank search finds
+// how many of the first k outputs come from a; then one comparison and one
+// load per output, the two heads held in registers, with no branch on the
+// data (the lanes of a warp never diverge).  a and b are pointers to keys,
+// or Keyed or Reversed runs.
+template <bool kBitsOut, typename A, typename B, typename K>
+__device__ __forceinline__ void merge_range(A a, int na, B b, int nb, int k, int count, K* out) {
   int lo = k > nb ? k - nb : 0;
   int hi = k < na ? k : na;
   while (lo < hi) {
@@ -308,55 +390,68 @@ __device__ __forceinline__ void merge_range(A a, int na, B b, int nb, int k, int
   }
   int i = lo;
   int j = k - lo;
-  T x = i < na ? a[i] : T(0);
-  T y = j < nb ? b[j] : T(0);
+  K x = i < na ? a[i] : K(0);
+  K y = j < nb ? b[j] : K(0);
   for (int c = 0; c < count; ++c) {
     const bool take_a = j >= nb || (i < na && x <= y);
-    out[c] = take_a ? x : y;
+    const K v = take_a ? x : y;
+    out[c] = kBitsOut ? order_key(v) : v;
     i += take_a;
     j += !take_a;
     // the side just taken has a value, so its index clamps inside it
-    const T next = take_a ? a[min(i, na - 1)] : b[min(j, nb - 1)];
+    const K next = take_a ? a[min(i, na - 1)] : b[min(j, nb - 1)];
     x = take_a ? next : x;
     y = take_a ? y : next;
   }
 }
 
-// Stores the block's n values of s (shared memory) to run in device memory:
-// 16-byte stores once run is aligned, a short head before and a tail after.
-template <typename T>
-__device__ __forceinline__ void store_run(T* run, const T* s, int n) {
-  using V = Vec16<T>;
-  const int mis = static_cast<int>((reinterpret_cast<unsigned long long>(run) / sizeof(T)) % V::n);
+// Stores the block's n keys of s (shared memory) to run in device memory as
+// bit patterns: 16-byte stores once run is aligned, a short head before and
+// a tail after.
+template <typename K>
+__device__ __forceinline__ void store_run(K* run, const K* s, int n) {
+  using V = Vec16<K>;
+  const int mis = static_cast<int>((reinterpret_cast<unsigned long long>(run) / sizeof(K)) % V::n);
   const int head = min(n, (V::n - mis) % V::n);
-  if (static_cast<int>(threadIdx.x) < head) run[threadIdx.x] = s[threadIdx.x];
+  if (static_cast<int>(threadIdx.x) < head) run[threadIdx.x] = order_key(s[threadIdx.x]);
   const int n_vec = (n - head) / V::n;
   auto* vrun = reinterpret_cast<typename V::type*>(run + head);
-  if (reinterpret_cast<unsigned long long>(s + head) % 16 == 0) {
-    const auto* vs = reinterpret_cast<const typename V::type*>(s + head);
-    for (int v = threadIdx.x; v < n_vec; v += blockDim.x) vrun[v] = vs[v];
-  } else {
-    for (int v = threadIdx.x; v < n_vec; v += blockDim.x) vrun[v] = V::make(s + head + v * V::n);
+  const bool vs_aligned = reinterpret_cast<unsigned long long>(s + head) % 16 == 0;
+  for (int v = threadIdx.x; v < n_vec; v += blockDim.x) {
+    K w[V::n];
+    if (vs_aligned) {
+      V::split(reinterpret_cast<const typename V::type*>(s + head)[v], w);
+    } else {
+#pragma unroll
+      for (int e = 0; e < V::n; ++e) w[e] = s[head + v * V::n + e];
+    }
+#pragma unroll
+    for (int e = 0; e < V::n; ++e) w[e] = order_key(w[e]);
+    vrun[v] = V::make(w);
   }
-  for (int i = head + n_vec * V::n + threadIdx.x; i < n; i += blockDim.x) run[i] = s[i];
+  for (int i = head + n_vec * V::n + threadIdx.x; i < n; i += blockDim.x) run[i] = order_key(s[i]);
 }
 
 // ------------------------------------------------------------------ K5
 // Outputs [d, d + count) of one level of a block's run: every aligned pair
 // of h-value runs of src merged into one ascending 2h-value run of dst.
-// When kReversedRight (the slab itself, h = m), the right run of each pair
-// is an odd slab row, stored descending.
-template <bool kReversedRight, typename T>
-__device__ __forceinline__ void merge_pairs(const T* src, int h, int d, int count, T* dst) {
+// kBits: src and dst hold bit patterns in device memory (keyed as loaded,
+// turned back as stored), else keys in shared memory.  When kReversedRight (the
+// slab itself, h = m), the right run of each pair is an odd slab row, stored
+// descending.
+template <bool kBits, bool kReversedRight, typename K>
+__device__ __forceinline__ void merge_pairs(const K* src, int h, int d, int count, K* dst) {
   while (count > 0) {
     const int pair = d / (2 * h);
     const int k = d - pair * 2 * h;
     const int c = min(count, 2 * h - k);
-    const T* a = src + static_cast<long long>(pair) * 2 * h;
-    if constexpr (kReversedRight) {
-      merge_range(a, h, Reversed<T>{a + h, h}, h, k, c, dst + d);
+    const K* a = src + static_cast<long long>(pair) * 2 * h;
+    if constexpr (!kBits) {
+      merge_range<false>(a, h, a + h, h, k, c, dst + d);
+    } else if constexpr (kReversedRight) {
+      merge_range<true>(Keyed<K>{a}, h, Reversed<Keyed<K>>{Keyed<K>{a + h}, h}, h, k, c, dst + d);
     } else {
-      merge_range(a, h, a + h, h, k, c, dst + d);
+      merge_range<true>(Keyed<K>{a}, h, Keyed<K>{a + h}, h, k, c, dst + d);
     }
     d += c;
     count -= c;
@@ -368,52 +463,57 @@ __device__ __forceinline__ void merge_pairs(const T* src, int h, int d, int coun
 // (level k - 1's runs; at k = 0 the slab rows, odd ones read from the end).
 // Each thread merges a contiguous range of a level's outputs, odd in length
 // (distinct shared-memory banks at the start).  kShared: the rows are
-// staged in shared memory and the levels ping-pong between two shared
-// buffers, each level stored in 16-byte stores once merged.  Else every
-// merge runs in device memory, level k reading the level k - 1 the block
-// has just written: levels is not __restrict__ and never read through the
-// read-only path, and __syncthreads() makes those writes visible.
-template <typename T, bool kShared>
+// staged in shared memory as keys and the levels ping-pong between two
+// shared buffers, each level stored in 16-byte stores once merged.  Else
+// every merge runs in device memory, level k reading the level k - 1 the
+// block has just written: levels is not __restrict__ and never read through
+// the read-only path, and __syncthreads() makes those writes visible.
+template <typename K, bool kShared>
 __global__ void __launch_bounds__(kThreads)
-build_levels_kernel(const T* __restrict__ slab, T* levels, int dp, int m, int n_levels) {
+build_levels_kernel(const K* __restrict__ slab, K* levels, int dp, int m, int n_levels) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int runs = dp >> n_levels;
   const long long b = blockIdx.x / runs;
   const int g = static_cast<int>(blockIdx.x - b * runs);
   const int total = m << n_levels;
-  const T* rows = slab + (b * dp + (static_cast<long long>(g) << n_levels)) * m;
+  const K* rows = slab + (b * dp + (static_cast<long long>(g) << n_levels)) * m;
   const long long level_stride = static_cast<long long>(dp) * m;
-  T* const lv = levels + b * n_levels * level_stride + (static_cast<long long>(g) << n_levels) * m;
+  K* const lv = levels + b * n_levels * level_stride + (static_cast<long long>(g) << n_levels) * m;
   const int step = ((total + blockDim.x - 1) / blockDim.x) | 1;
 
   if constexpr (kShared) {
-    T* const buf0 = reinterpret_cast<T*>(smem_raw);
-    T* const buf1 = buf0 + total;
+    K* const buf0 = reinterpret_cast<K*>(smem_raw);
+    K* const buf1 = buf0 + total;
     for (int j = threadIdx.x; j < total; j += blockDim.x) {
       const int r = j / m;
       const int c = j - r * m;
-      __pipeline_memcpy_async(buf0 + j, rows + r * m + ((r & 1) ? m - 1 - c : c), sizeof(T));
+      __pipeline_memcpy_async(buf0 + j, rows + r * m + ((r & 1) ? m - 1 - c : c), sizeof(K));
     }
     __pipeline_commit();
     __pipeline_wait_prior(0);
+    // cp.async lands bit patterns: this thread's own, turned into keys.  On
+    // an H100 this pass cost less than keying loads through registers, which
+    // took 10 % longer here and 25 % longer in the window-31 fold (5 % less
+    // in the window-5 merge)
+    for (int j = threadIdx.x; j < total; j += blockDim.x) buf0[j] = order_key(buf0[j]);
     __syncthreads();
     for (int k = 0; k < n_levels; ++k) {
-      const T* src = (k & 1) ? buf1 : buf0;
-      T* dst = (k & 1) ? buf0 : buf1;
+      const K* src = (k & 1) ? buf1 : buf0;
+      K* dst = (k & 1) ? buf0 : buf1;
       for (int d = threadIdx.x * step; d < total; d += blockDim.x * step)
-        merge_pairs<false>(src, m << k, d, min(step, total - d), dst);
+        merge_pairs<false, false>(src, m << k, d, min(step, total - d), dst);
       __syncthreads();
       // the next level reads dst and writes the other buffer: no sync here
       store_run(lv + k * level_stride, dst, total);
     }
   } else {
     for (int k = 0; k < n_levels; ++k) {
-      T* dst = lv + k * level_stride;
+      K* dst = lv + k * level_stride;
       for (int d = threadIdx.x * step; d < total; d += blockDim.x * step) {
         if (k == 0) {
-          merge_pairs<true>(rows, m, d, min(step, total - d), dst);
+          merge_pairs<true, true>(rows, m, d, min(step, total - d), dst);
         } else {
-          merge_pairs<false>(static_cast<const T*>(dst - level_stride), m << k, d, min(step, total - d), dst);
+          merge_pairs<true, false>(static_cast<const K*>(dst - level_stride), m << k, d, min(step, total - d), dst);
         }
       }
       __syncthreads();
@@ -428,8 +528,9 @@ build_levels_kernel(const T* __restrict__ slab, T* levels, int dp, int m, int n_
 // _dyadic_segments), each an ascending run: a slab row (read from the end
 // when odd) or a level run.  The segments are laid out smallest first; each
 // one's first rows·ymax values (the rest are +inf by the caller's promise)
-// are staged (cp.async into shared memory, plain loads into the output
-// row), then folded smallest first, as the TPU kernel folds: step k merges
+// are staged as keys (cp.async into shared memory and a pass keying what
+// each thread staged; keying loads into the output row), then folded
+// smallest first, as the TPU kernel folds: step k merges
 // the run of the first k segments with segment k, by merge path (each
 // thread a contiguous range of outputs, odd in length so that the threads'
 // ranges start in distinct shared-memory banks), ping-ponging between two
@@ -443,17 +544,17 @@ build_levels_kernel(const T* __restrict__ slab, T* levels, int dp, int m, int n_
 // k - 1 writes there.  The second buffer is shared memory when both fit
 // (kSharedScratch), else the block's own output row in device memory; the
 // last step lands in shared memory, and the finished row is stored with
-// coalesced 16-byte stores.  The window·ymax staged values fill the output
-// row exactly.
-template <typename T, bool kSharedScratch>
+// coalesced 16-byte stores, as bit patterns again.  The window·ymax
+// staged values fill the output row exactly.
+template <typename K, bool kSharedScratch>
 __global__ void __launch_bounds__(kThreads)
-fold_windows_kernel(const T* __restrict__ slab, const T* __restrict__ levels, T* out, int dp, int m, int n_levels,
+fold_windows_kernel(const K* __restrict__ slab, const K* __restrict__ levels, K* out, int dp, int m, int n_levels,
                     int window, int n_groups, int ymax) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* s = reinterpret_cast<T*>(smem_raw);
+  K* s = reinterpret_cast<K*>(smem_raw);
   __shared__ int seg_off[kMaxSegments + 1];
   __shared__ int seg_rows[kMaxSegments];
-  __shared__ const T* seg_src[kMaxSegments];
+  __shared__ const K* seg_src[kMaxSegments];
   __shared__ bool seg_rev[kMaxSegments];
   __shared__ int n_seg;
 
@@ -497,39 +598,45 @@ fold_windows_kernel(const T* __restrict__ slab, const T* __restrict__ levels, T*
 
   const int ns = n_seg;
   const int total = seg_off[ns];
-  T* row = out + bg * total;
+  K* row = out + bg * total;
   // the two merge buffers: s, and scratch (shared memory or the output row);
   // step k writes s when ns - 1 - k is even, so the last step writes s
-  T* const scratch = kSharedScratch ? s + total : row;
+  K* const scratch = kSharedScratch ? s + total : row;
+  // the buffer segment t's first step reads (s for a lone segment)
+  const auto into_s = [&](int t) { return ((ns - 1 - max(t, 1)) & 1) != 0; };
 
   for (int t = 0; t < ns; ++t) {
-    // the buffer the segment's first step reads (s for a lone segment)
-    const bool into_s = ((ns - 1 - max(t, 1)) & 1) != 0;
     const int len = seg_off[t + 1] - seg_off[t];
-    const T* run = seg_src[t];
+    const K* run = seg_src[t];
     const bool rev = seg_rev[t];
-    T* to = (into_s ? s : scratch) + seg_off[t];
-    if (kSharedScratch || into_s) {
+    K* to = (into_s(t) ? s : scratch) + seg_off[t];
+    if (kSharedScratch || into_s(t)) {
       // into shared memory: every copy in flight at once (cp.async)
       for (int j = threadIdx.x; j < len; j += blockDim.x)
-        __pipeline_memcpy_async(to + j, rev ? run + m - 1 - j : run + j, sizeof(T));
+        __pipeline_memcpy_async(to + j, rev ? run + m - 1 - j : run + j, sizeof(K));
     } else {
-      for (int j = threadIdx.x; j < len; j += blockDim.x) to[j] = at(run, j, m, rev);
+      for (int j = threadIdx.x; j < len; j += blockDim.x) to[j] = order_key(at(run, j, m, rev));
     }
   }
   __pipeline_commit();
   __pipeline_wait_prior(0);
+  // cp.async lands bit patterns: key the values this thread staged
+  for (int t = 0; t < ns; ++t) {
+    if (!kSharedScratch && !into_s(t)) continue;
+    K* to = (into_s(t) ? s : scratch) + seg_off[t];
+    for (int j = threadIdx.x; j < seg_off[t + 1] - seg_off[t]; j += blockDim.x) to[j] = order_key(to[j]);
+  }
   __syncthreads();
 
   for (int k = 1; k < ns; ++k) {
-    const bool into_s = !((ns - 1 - k) & 1);
-    const T* src = into_s ? scratch : s;
-    T* dst = into_s ? s : scratch;
+    const bool to_s = !((ns - 1 - k) & 1);
+    const K* src = to_s ? scratch : s;
+    K* dst = to_s ? s : scratch;
     const int na = seg_off[k];
     const int n_out = seg_off[k + 1];
     const int step = ((n_out + blockDim.x - 1) / blockDim.x) | 1;
     for (int d = threadIdx.x * step; d < n_out; d += blockDim.x * step)
-      merge_range(src, na, src + na, n_out - na, d, min(step, n_out - d), dst + d);
+      merge_range<false>(src, na, src + na, n_out - na, d, min(step, n_out - d), dst + d);
     __syncthreads();
   }
 
@@ -547,8 +654,10 @@ int launch_warp_sort(const void* in, void* out, long long rows, int m, int dp, c
   return static_cast<int>(cudaGetLastError());
 }
 
+// T float or double.  The long-row variant sorts the values' keys.
 template <typename T>
 int sort_rows_alt(const void* in, void* out, long long rows, int m, int dp, bool in_warp, cudaStream_t stream) {
+  using K = typename BitsOf<T>::type;
   if (in_warp) {
     switch (m <= 32 ? 1 : m / 32) {
       case 1: return launch_warp_sort<T, 1>(in, out, rows, m, dp, stream);
@@ -561,9 +670,9 @@ int sort_rows_alt(const void* in, void* out, long long rows, int m, int dp, bool
     }
   }
   const int threads = std::min(std::max(m / 2, 32), 512);
-  const size_t smem = static_cast<size_t>(m) * sizeof(T);
-  sort_rows_alt_kernel<T><<<static_cast<unsigned>(rows), threads, smem, stream>>>(
-      static_cast<const T*>(in), static_cast<T*>(out), m, dp);
+  const size_t smem = static_cast<size_t>(m) * sizeof(K);
+  sort_rows_alt_kernel<K><<<static_cast<unsigned>(rows), threads, smem, stream>>>(
+      static_cast<const K*>(in), static_cast<K*>(out), m, dp);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -571,52 +680,54 @@ int sort_rows_alt(const void* in, void* out, long long rows, int m, int dp, bool
 // values at about 9 outputs a thread, at most kThreads.
 inline int fold_threads(int total) { return std::min(kThreads, ((total + 8) / 9 + 31) / 32 * 32); }
 
-template <typename T, bool kShared>
+// The level build and the fold take K, the values' bit type (int for
+// float, long long for double).
+template <typename K, bool kShared>
 int launch_levels(const void* slab, void* levels, int batch, int dp, int m, int n_levels, cudaStream_t stream) {
   const int total = m << n_levels;
-  const size_t smem = kShared ? 2 * static_cast<size_t>(total) * sizeof(T) : 0;
+  const size_t smem = kShared ? 2 * static_cast<size_t>(total) * sizeof(K) : 0;
   if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(build_levels_kernel<T, kShared>,
+    const cudaError_t err = cudaFuncSetAttribute(build_levels_kernel<K, kShared>,
                                                  cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const long long blocks = static_cast<long long>(batch) * (dp >> n_levels);
-  build_levels_kernel<T, kShared><<<static_cast<unsigned>(blocks), fold_threads(total), smem, stream>>>(
-      static_cast<const T*>(slab), static_cast<T*>(levels), dp, m, n_levels);
+  build_levels_kernel<K, kShared><<<static_cast<unsigned>(blocks), fold_threads(total), smem, stream>>>(
+      static_cast<const K*>(slab), static_cast<K*>(levels), dp, m, n_levels);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename K>
 int build_levels(const void* slab, void* levels, int batch, int dp, int m, int n_levels, bool in_shared,
                  cudaStream_t stream) {
-  return in_shared ? launch_levels<T, true>(slab, levels, batch, dp, m, n_levels, stream)
-                   : launch_levels<T, false>(slab, levels, batch, dp, m, n_levels, stream);
+  return in_shared ? launch_levels<K, true>(slab, levels, batch, dp, m, n_levels, stream)
+                   : launch_levels<K, false>(slab, levels, batch, dp, m, n_levels, stream);
 }
 
-template <typename T, bool kSharedScratch>
+template <typename K, bool kSharedScratch>
 int launch_fold(const void* slab, const void* levels, void* out, int batch, int dp, int m, int n_levels, int window,
                 int n_groups, int ymax, cudaStream_t stream) {
   const int total = window * ymax;
-  const size_t smem = static_cast<size_t>(total) * sizeof(T) * (kSharedScratch ? 2 : 1);
+  const size_t smem = static_cast<size_t>(total) * sizeof(K) * (kSharedScratch ? 2 : 1);
   if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(fold_windows_kernel<T, kSharedScratch>,
+    const cudaError_t err = cudaFuncSetAttribute(fold_windows_kernel<K, kSharedScratch>,
                                                  cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const int threads = fold_threads(total);
   const long long blocks = static_cast<long long>(batch) * n_groups;
-  fold_windows_kernel<T, kSharedScratch><<<static_cast<unsigned>(blocks), threads, smem, stream>>>(
-      static_cast<const T*>(slab), static_cast<const T*>(levels), static_cast<T*>(out), dp, m, n_levels, window,
+  fold_windows_kernel<K, kSharedScratch><<<static_cast<unsigned>(blocks), threads, smem, stream>>>(
+      static_cast<const K*>(slab), static_cast<const K*>(levels), static_cast<K*>(out), dp, m, n_levels, window,
       n_groups, ymax);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename K>
 int fold_windows(const void* slab, const void* levels, void* out, int batch, int dp, int m, int n_levels,
                  int window, int n_groups, int ymax, bool shared_scratch, cudaStream_t stream) {
   return shared_scratch
-             ? launch_fold<T, true>(slab, levels, out, batch, dp, m, n_levels, window, n_groups, ymax, stream)
-             : launch_fold<T, false>(slab, levels, out, batch, dp, m, n_levels, window, n_groups, ymax, stream);
+             ? launch_fold<K, true>(slab, levels, out, batch, dp, m, n_levels, window, n_groups, ymax, stream)
+             : launch_fold<K, false>(slab, levels, out, batch, dp, m, n_levels, window, n_groups, ymax, stream);
 }
 
 }  // namespace
@@ -656,8 +767,8 @@ extern "C" int xsdba_build_levels(const void* slab, void* levels, int batch, int
   const xsdba::DeviceGuard guard(device);
   if (guard.status() != cudaSuccess) return static_cast<int>(guard.status());
   const auto s = static_cast<cudaStream_t>(stream);
-  if (elem_size == 4) return build_levels<float>(slab, levels, batch, dp, m, n_levels, in_shared, s);
-  if (elem_size == 8) return build_levels<double>(slab, levels, batch, dp, m, n_levels, in_shared, s);
+  if (elem_size == 4) return build_levels<int>(slab, levels, batch, dp, m, n_levels, in_shared, s);
+  if (elem_size == 8) return build_levels<long long>(slab, levels, batch, dp, m, n_levels, in_shared, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -678,9 +789,9 @@ extern "C" int xsdba_fold_windows(const void* slab, const void* levels, void* ou
   if (guard.status() != cudaSuccess) return static_cast<int>(guard.status());
   const auto s = static_cast<cudaStream_t>(stream);
   if (elem_size == 4)
-    return fold_windows<float>(slab, levels, out, batch, dp, m, n_levels, window, n_groups, ymax, shared_scratch, s);
+    return fold_windows<int>(slab, levels, out, batch, dp, m, n_levels, window, n_groups, ymax, shared_scratch, s);
   if (elem_size == 8)
-    return fold_windows<double>(slab, levels, out, batch, dp, m, n_levels, window, n_groups, ymax, shared_scratch, s);
+    return fold_windows<long long>(slab, levels, out, batch, dp, m, n_levels, window, n_groups, ymax, shared_scratch, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -696,8 +807,8 @@ extern "C" long long xsdba_fold_smem_limit(int elem_size, int device) {
   if (err != cudaSuccess) return -static_cast<long long>(err);
   cudaFuncAttributes attr;
   // both variants declare the same static shared memory
-  err = elem_size == 8 ? cudaFuncGetAttributes(&attr, fold_windows_kernel<double, false>)
-                       : cudaFuncGetAttributes(&attr, fold_windows_kernel<float, false>);
+  err = elem_size == 8 ? cudaFuncGetAttributes(&attr, fold_windows_kernel<long long, false>)
+                       : cudaFuncGetAttributes(&attr, fold_windows_kernel<int, false>);
   if (err != cudaSuccess) return -static_cast<long long>(err);
   return static_cast<long long>(optin) - static_cast<long long>(attr.sharedSizeBytes);
 }

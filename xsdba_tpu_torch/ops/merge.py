@@ -16,6 +16,12 @@ odd rows descend.  Levels: [B, L, Dp, m], level k holding every aligned
 2^(k+1)-row run as one ascending run (not sign-stored as on the TPU).
 Merged rows: [B, G, window * ymax], ascending, +inf past the data.
 
+Order.  Every row, level and merged row is ordered by IEEE totalOrder, so
+-0.0 lies below +0.0, as the Pallas kernels' min/max networks order them.
+Equal values are then equal bit patterns, and every kernel and twin gives
+one output by bit pattern: a quantile that falls on a zero takes the sign
+the reference's kernels give it.
+
 Every kernel has a plain PyTorch twin beside its wrapper.  A wrapper runs
 the twin on a CPU tensor and launches its CUDA kernel
 (``csrc/merge_kernel.cu``) on a CUDA tensor, or raises; nothing on a CUDA
@@ -57,6 +63,7 @@ __all__ = [
     "row_sort_in_warp",
     "sort_rows_alternating",
     "sort_rows_alternating_reference",
+    "total_order_sort",
 ]
 
 #: kernel launches made by each wrapper (reset by assignment)
@@ -127,34 +134,49 @@ def _cut(merged, out_width: int):
     return torch.cat([merged, pad], dim=-1)
 
 
+def _ordered_keys(x):
+    """The bit patterns of float ``x`` as signed integers that order as IEEE
+    totalOrder orders the floats (negatives' magnitude bits flipped: -0.0
+    becomes -1, +0.0 stays 0).  The map is its own inverse."""
+    bits = 8 * x.element_size()
+    b = x.view(torch.int32 if bits == 32 else torch.int64)
+    return b ^ ((b >> (bits - 1)) & ((1 << (bits - 1)) - 1))
+
+
+def total_order_sort(x):
+    """Each row of float ``x`` (last axis) sorted ascending by IEEE
+    totalOrder: -0.0 before +0.0, so equal values are equal bit patterns."""
+    return _ordered_keys(torch.sort(_ordered_keys(x), dim=-1).values).view(x.dtype)
+
+
 def sort_rows_alternating_reference(x):
-    """Twin of the row sort: ``torch.sort`` of each row, odd rows flipped."""
-    return alternate_row_directions(torch.sort(x, dim=-1).values)
+    """Twin of the row sort: :func:`total_order_sort` of each row, odd rows flipped."""
+    return alternate_row_directions(total_order_sort(x))
 
 
 def build_levels_reference(s, levels: int):
-    """Twin of the level build: level k is ``torch.sort`` of each aligned
-    2^(k+1)-row run of the slab, stored ascending.  [B, Dp, m] -> [B, L, Dp, m]."""
+    """Twin of the level build: level k is :func:`total_order_sort` of each
+    aligned 2^(k+1)-row run of the slab, stored ascending.  [B, Dp, m] -> [B, L, Dp, m]."""
     B, Dp, m = s.shape
-    runs = [torch.sort(s.reshape(B, Dp >> (k + 1), (2 << k) * m), dim=-1).values.reshape(B, Dp, m) for k in range(levels)]
+    runs = [total_order_sort(s.reshape(B, Dp >> (k + 1), (2 << k) * m)).reshape(B, Dp, m) for k in range(levels)]
     return torch.stack(runs, dim=1)
 
 
 def merged_window_rows_reference(s, window: int, n_groups: int, out_width: int | None = None):
-    """Twin of the per-group merge (K4): ``torch.sort`` of group g's window
-    rows [g, g + window), concatenated, cut at ``out_width`` (default
-    ``window * m``).  [B, Dp, m] -> [B, G, out_width]."""
+    """Twin of the per-group merge (K4): :func:`total_order_sort` of group
+    g's window rows [g, g + window), concatenated, cut at ``out_width``
+    (default ``window * m``).  [B, Dp, m] -> [B, G, out_width]."""
     B, Dp, m = s.shape
     rows = torch.arange(n_groups, device=s.device)[:, None] + torch.arange(window, device=s.device)[None, :]
-    merged = torch.sort(s[:, rows, :].reshape(B, n_groups, window * m), dim=-1).values
+    merged = total_order_sort(s[:, rows, :].reshape(B, n_groups, window * m))
     return _cut(merged, window * m if out_width is None else out_width)
 
 
 def fold_windows_reference(s, levels, window: int, n_groups: int, out_width: int | None = None):
-    """Twin of the window fold: ``torch.sort`` of group g's aligned dyadic
-    segments, read from the levels (a single row from the slab), cut at
-    ``out_width`` (default ``window * m``).  Groups g ≡ c (mod 2^L) share one
-    segment plan, so the twin runs one class at a time."""
+    """Twin of the window fold: :func:`total_order_sort` of group g's aligned
+    dyadic segments, read from the levels (a single row from the slab), cut
+    at ``out_width`` (default ``window * m``).  Groups g ≡ c (mod 2^L) share
+    one segment plan, so the twin runs one class at a time."""
     B, Dp, m = s.shape
     max_rows = 1 << levels.shape[1]
     out = torch.empty((B, n_groups, window * m), dtype=s.dtype, device=s.device)
@@ -168,7 +190,7 @@ def fold_windows_reference(s, levels, window: int, n_groups: int, out_width: int
                 idx = g[:, None] + delta + torch.arange(rows, device=s.device)[None, :]
                 k = rows.bit_length() - 2
                 parts.append(levels[:, k][:, idx, :].reshape(B, len(g), rows * m))
-        out[:, c::max_rows] = torch.sort(torch.cat(parts, dim=-1), dim=-1).values
+        out[:, c::max_rows] = total_order_sort(torch.cat(parts, dim=-1))
     return _cut(out, window * m if out_width is None else out_width)
 
 

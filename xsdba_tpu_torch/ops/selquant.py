@@ -34,7 +34,11 @@ so one program covers finite and NaN data.  The selected elements are the
 floats the sorted window would hold (a selected -0.0 as +0.0, as the
 reference's sums give it), and the rank and lerp arithmetic mirrors the
 reference op for op, so both engines equal each other, the reference's
-engines and its re-sort oracle bit for bit on the CPU.
+engines and its re-sort oracle bit for bit on the CPU.  The merge engine
+(``ops/merge.py``) instead gives a selected zero the sign its rows hold in
+IEEE totalOrder, as the reference's merge kernels do: the two engines of
+either package can give a zero, and a ``kind="*"`` factor over it an
+infinity, of different sign.
 """
 
 from __future__ import annotations
