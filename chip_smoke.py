@@ -1459,19 +1459,6 @@ def _profile(label, step, ours):
         print(f"[profile]   {_device_us(e) / 1e3:9.3f} ms  {100 * _device_us(e) / busy_us:5.1f}%  x{e.count:<4d} {e.key[:110]}", flush=True)
 
 
-def _reset_counts():
-    interp_kernel.launches = interp_kernel.launches_2d = interp_kernel.launches_bracketed = 0
-    sort.launches = fma_kernel.launches = emit_kernel.launches = 0
-    for k in merge.launches:
-        merge.launches[k] = 0
-
-
-def _counts():
-    return dict(merge.launches, interp_table_3d=interp_kernel.launches, interp_table_2d=interp_kernel.launches_2d,
-                interp_bracketed=interp_kernel.launches_bracketed, sort_rows_with_payload=sort.launches, fma=fma_kernel.launches,
-                emit=emit_kernel.launches)
-
-
 def _peak(dev, fn):
     """(fn's result, its peak device memory above what was held before it, bytes)."""
     torch.cuda.synchronize()
@@ -1492,11 +1479,11 @@ def second_order_phase(dev, ours, tp, pr_np, scen0):
     cut = slice(0, CHECK_SITES)
 
     # ExtremeValues: 512 sites x 150 years of pr
-    _reset_counts()
+    profiling.reset_counters()
     t0 = time.perf_counter()
     (ev, ev_out), peak = _peak(dev, lambda: extremes_run(pref_np, phist_np, psim_np, scen0, tp))
     first_s = time.perf_counter() - t0
-    counts["ExtremeValues"] = c = _counts()
+    counts["ExtremeValues"] = c = profiling.counters("launch.")
     out = ev_out.data
     assert out.is_cuda and out.dtype == torch.float32 and out.shape == scen0.shape, (out.device, out.dtype, tuple(out.shape))
     assert bool(torch.isfinite(out)[torch.isfinite(scen0)].all()), "ExtremeValues: non-finite where scen is finite"
@@ -1553,11 +1540,11 @@ def second_order_phase(dev, ours, tp, pr_np, scen0):
     # PrincipalComponents: config 4's recipe at 512 sites, both orientations
     pref, phist, psim = mbcn_problem(PCA_SITES)
     for orientation in ("simple", "full"):
-        _reset_counts()
+        profiling.reset_counters()
         t0 = time.perf_counter()
         (pca, scen), peak = _peak(dev, lambda: pca_run(pref, phist, psim, orientation))
         first_s = time.perf_counter() - t0
-        counts[f"PrincipalComponents {orientation}"] = c = _counts()
+        counts[f"PrincipalComponents {orientation}"] = c = profiling.counters("launch.")
         assert scen.data.is_cuda and scen.dims == psim.dims and bool(torch.isfinite(scen.data).all()), f"PCA {orientation}: {scen.data.device}"
         assert not any(c.values()), f"PCA {orientation}: a kernel of the port ran: {c}"
         with xp.set_options(device="cpu"):
@@ -1584,12 +1571,12 @@ def second_order_phase(dev, ours, tp, pr_np, scen0):
     bins = occupied_bins(oref, ohist)
     print(f"[second-order] OT problem: 1 site x 2 variables x {OT_YEARS} yr, monthly; occupied bins a month (hist, ref): {bins}", flush=True)
     for name in OT_RUNS:
-        _reset_counts()
+        profiling.reset_counters()
         t0 = time.perf_counter()
         got = ot_run(name, oref, ohist, osim)
         torch.cuda.synchronize()
         first_s = time.perf_counter() - t0
-        counts[name] = c = _counts()
+        counts[name] = c = profiling.counters("launch.")
         assert got.data.is_cuda and bool(torch.isfinite(got.data).all()) and not any(c.values()), f"{name}: {got.data.device}, launches {c}"
         with xp.set_options(device="cpu"):
             want = ot_run(name, oref, ohist, osim)
@@ -1598,12 +1585,12 @@ def second_order_phase(dev, ours, tp, pr_np, scen0):
         print(f"[second-order] {name} on numpy {tuple(got.data.shape)} -> {got.data.device}: finite, equal to the CPU port given the same draws; "
               f"first call {first_s:.3f} s (the first OTC call builds the EMD library), then {_fmt(api)} "
               f"(host clock: histograms, 12 exact plans in threads, sampling)", flush=True)
-    _reset_counts()
+    profiling.reset_counters()
     t0 = time.perf_counter()
     sink = ot_run("OTC", oref, ohist, osim, solver="sinkhorn")
     torch.cuda.synchronize()
     host_s = time.perf_counter() - t0
-    counts["OTC sinkhorn"] = _counts()
+    counts["OTC sinkhorn"] = profiling.counters("launch.")
     with xp.set_options(device="cpu"):
         sink_cpu = ot_run("OTC", oref, ohist, osim, solver="sinkhorn")
     moved = float((sink.data.cpu() != sink_cpu.data).any(dim=0).float().mean())
@@ -1672,7 +1659,7 @@ def config5_phase(dev, ours):
             print(f"[config 5] first {CHECK_SITES} sites of block 0 vs the CPU port (the same draws): scen max abs diff {scen_err:.3g}; "
                   f"largest scaled difference by class {({k: f'{v:.3g}' for k, v in worst.items()})}", flush=True)
             del gtas, gpr, gsuite, ctas, cpr, csuite
-        _reset_counts()
+        profiling.reset_counters()
         t0 = time.perf_counter()
         tas, pr = config5_qdm(xp, t, tas_d, pr_d, coords)
         torch.cuda.synchronize()
@@ -1680,7 +1667,7 @@ def config5_phase(dev, ours):
         suite = config5_suite(properties, measures, tas, pr) | config5_return_values(properties, measures, tas)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
-        counts = _counts()
+        counts = profiling.counters("launch.")
         qdm_s.append(t1 - t0)
         suite_s.append(t2 - t1)
         block_counts.append({k: n for k, n in counts.items() if n})
@@ -1706,7 +1693,7 @@ def config5_phase(dev, ours):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     base_tile = torch.cuda.memory_allocated(dev)
-    _reset_counts()
+    profiling.reset_counters()
     t0 = time.perf_counter()
     spatial = {
         "correlogram ref": properties.spatial_correlogram(tile_da["ref"]),
@@ -1717,7 +1704,7 @@ def config5_phase(dev, ours):
     torch.cuda.synchronize()
     spatial_s = time.perf_counter() - t0
     peak_tile = torch.cuda.max_memory_allocated(dev) - base_tile
-    assert not any(_counts().values()), f"config 5 spatial: a kernel of the port ran: {_counts()}"
+    assert not any(profiling.counters("launch.").values()), f"config 5 spatial: a kernel of the port ran: {profiling.counters("launch.")}"
     with xp.set_options(device="cpu"):
         want = properties.spatial_correlogram(xp.DataArray(tile_da["scen"].data.cpu(), ("site", "time"), dict(tile_da["scen"].coords), {"units": "K"}, "tas"))
     empty = torch.isnan(want.data)   # distance bins that hold no pair of sites
@@ -1863,10 +1850,10 @@ def c31_phase(dev):
     out = {}
     for interp in ("nearest", "linear"):
         torch.cuda.synchronize()
-        _reset_counts()
+        profiling.reset_counters()
         scen = qdm.adjust(_pr_da(sim_np, t, "sim"), interp=interp).data
         torch.cuda.synchronize()
-        counts = _counts()
+        counts = profiling.counters("launch.")
         assert scen.device.type == torch.device(dev).type and counts["interp_table_3d"] >= 1, f"C31 public adjust launches {counts}"
         with xp.set_options(device="cpu", selection_backend=False):
             want = qdm_cpu.adjust(_pr_da(sim_np[cut], t, "sim"), interp=interp).data
@@ -1946,9 +1933,9 @@ def a7_phase(dev, smi):
     qdm = xp.QuantileDeltaMapping.train(_da(ref, t, "ref"), _da(hist, t, "hist"), group="time.month", nquantiles=NQ, kind="+")
     adjust = lambda: qdm.adjust(_da(sim, t, "sim"), interp="cubic").data  # noqa: E731
     torch.cuda.synchronize()
-    _reset_counts()
+    profiling.reset_counters()
     scen, peak = _peak(dev, adjust)
-    counts = out["cubic QDM"] = _counts()
+    counts = out["cubic QDM"] = profiling.counters("launch.")
     assert scen.device.type == dev.type and bool(torch.isfinite(scen).all()), "cubic QDM: non-finite output"
     assert not any(counts[k] for k in _LOOKUPS) and counts["fma"] >= 1, f"cubic QDM: launches {counts}"
     with xp.set_options(device="cpu"):
@@ -1975,16 +1962,16 @@ def a7_phase(dev, smi):
     # 2. cubic windowed EQM on the heavy data: the merge engine trains, the adjust is cubic
     th, (href, hhist, hsim) = heavy_problem(HEAVY_SITES, HEAVY_YEARS)
     torch.cuda.synchronize()
-    _reset_counts()
+    profiling.reset_counters()
     t0 = time.perf_counter()
     eqm = xp.EmpiricalQuantileMapping.train(_da(href, th, "ref"), _da(hhist, th, "hist"), group="time.dayofyear", window=HEAVY_WINDOW, nquantiles=NQ, kind="+")
     torch.cuda.synchronize()
     train_ms = (time.perf_counter() - t0) * 1e3
-    train_counts = _counts()
+    train_counts = profiling.counters("launch.")
     assert all(train_counts[k] >= 1 for k in ("sort_rows_alternating", "build_levels", "fold_windows")), f"cubic EQM train: launches {train_counts}"
-    _reset_counts()
+    profiling.reset_counters()
     hscen, hpeak = _peak(dev, lambda: eqm.adjust(_da(hsim, th, "sim"), interp="cubic").data)
-    counts = out["cubic windowed EQM"] = {"train": train_counts, "adjust": _counts()}
+    counts = out["cubic windowed EQM"] = {"train": train_counts, "adjust": profiling.counters("launch.")}
     assert bool(torch.isfinite(hscen).all()) and not any(counts["adjust"][k] for k in _LOOKUPS), f"cubic EQM: launches {counts}"
     hcut = slice(0, HEAVY_CHECK)
     with xp.set_options(device="cpu", selection_backend=False):   # the CPU's default engine is selection
@@ -2013,9 +2000,9 @@ def a7_phase(dev, smi):
 
     mw = mw_train()
     torch.cuda.synchronize()
-    _reset_counts()
+    profiling.reset_counters()
     (stacked, unstacked), mpeak = _peak(dev, lambda: moving_window(mw))
-    counts = out["moving-window QDM"] = _counts()
+    counts = out["moving-window QDM"] = profiling.counters("launch.")
     assert tuple(stacked.shape) == (N_SITES, (N_YEARS - MW_WINDOW) // MW_STRIDE + 1, 365 * MW_WINDOW) and stacked.data.device.type == dev.type, (tuple(stacked.shape), stacked.data.device)
     back = processing.unstack_periods(stacked).data
     assert torch.equal(back, torch.from_numpy(sim).to(dev)), "stack then unstack is not the series"
@@ -2038,12 +2025,12 @@ def a7_phase(dev, smi):
     mref, mhist, msim = mbcn_pr_problem(MBCN_A["sites"])
     n, nq = MBCN_A["check"], MBCN_A["nq"]
     torch.cuda.synchronize()
-    _reset_counts()
+    profiling.reset_counters()
     t0 = time.perf_counter()
     with SeededDraws(61):
         (mobj, mscen), mpeak = _peak(dev, lambda: run_mbcn(mref, mhist, msim, MBCN_A["group"], nq, base_kws_vars=MBCN_PR_KWS))
     mbcn_s = time.perf_counter() - t0
-    counts = out["MBCn pr"] = _counts()
+    counts = out["MBCn pr"] = profiling.counters("launch.")
     data = mscen.data
     assert data.device.type == dev.type and tuple(data.shape) == (MBCN_VARS, MBCN_A["sites"], 365 * MBCN_YEARS) and bool(torch.isfinite(data).all()), "MBCn pr: output"
     want_2d = 2 * MBCN_ITERS + MBCN_VARS   # one chunk: n_iter in the train, n_iter + V in the adjust
@@ -2078,9 +2065,9 @@ def a7_phase(dev, smi):
     tp, (pref, _, _) = pr_problem(PR_SITES, PR_YEARS)
     pda = _pr_da(pref, tp, "pr")
     torch.cuda.synchronize()
-    _reset_counts()
+    profiling.reset_counters()
     (add, back_pr), apeak = _peak(dev, lambda: (lambda a: (a, processing.from_additive_space(a)))(processing.to_additive_space(pda, lower_bound="0 mm/d", trans="log")))
-    counts = out["additive space"] = _counts()
+    counts = out["additive space"] = profiling.counters("launch.")
     with xp.set_options(device="cpu"):
         cadd = processing.to_additive_space(_pr_da(pref[:CHECK_SITES], tp, "pr"), lower_bound="0 mm/d", trans="log")
         cback = processing.from_additive_space(cadd)
@@ -2096,9 +2083,9 @@ def a7_phase(dev, smi):
     # 6. the spectral filter on config 3's grid, delta estimated from lat
     field = spectral_field(dev)
     torch.cuda.synchronize()
-    _reset_counts()
+    profiling.reset_counters()
     filt, speak = _peak(dev, lambda: processing.spectral_filter(field, **SF_KW))
-    counts = out["spectral filter"] = _counts()
+    counts = out["spectral filter"] = profiling.counters("launch.")
     assert bool(torch.isfinite(filt.data).all()) and filt.data.dtype == torch.float32
     part = xp.DataArray(field.data[:SF_CHECK_DAYS].cpu(), field.dims, {**field.coords, "time": field.coords["time"].isel(np.arange(SF_CHECK_DAYS))}, dict(field.attrs), field.name)
     with xp.set_options(device="cpu"):
@@ -2122,9 +2109,9 @@ def a7_phase(dev, smi):
     for tag, (xq, yq), group, kernel in (("grouped", gtabs, "time.month", "interp_table_3d"), ("ungrouped", utabs, "time", "interp_table_2d")):
         call = lambda: processing.interp_on_quantiles(_da(sim, t, "sim"), xq, yq, group=group, method="linear", mode="blend").data  # noqa: E731
         torch.cuda.synchronize()
-        _reset_counts()
+        profiling.reset_counters()
         got, ipeak = _peak(dev, call)
-        counts = out[f"interp_on_quantiles {tag}"] = _counts()
+        counts = out[f"interp_on_quantiles {tag}"] = profiling.counters("launch.")
         assert counts[kernel] >= 1 and bool(torch.isfinite(got).all()), f"interp_on_quantiles {tag}: launches {counts}"
         sub = lambda d: xp.DataArray(d.data[cut].cpu(), d.dims, dict(d.coords), dict(d.attrs), d.name)  # noqa: E731
         with xp.set_options(device="cpu"):
@@ -2204,12 +2191,12 @@ def shell_phase(smi, heavy):
     os.makedirs(build, exist_ok=True)
     logdir = tempfile.mkdtemp(prefix="trace_", dir=build)
     torch.cuda.synchronize()
-    _reset_counts()
+    profiling.reset_counters()
     t0 = time.perf_counter()
     with profiling.trace(logdir):
         hscen = run_windowed_path(href, hhist, hsim, th)
     trace_s = time.perf_counter() - t0
-    counts = _counts()
+    counts = profiling.counters("launch.")
     (fname,) = os.listdir(logdir)
     path = os.path.join(logdir, fname)
     with open(path) as f:
@@ -2602,12 +2589,12 @@ def main(argv=None) -> int:
     # 4. headline QDM through the public API
     ref, hist, sim = (torch.from_numpy(a).to(dev) for a in (ref_np, hist_np, sim_np))
     torch.cuda.synchronize()
-    _reset_counts()
+    profiling.reset_counters()
     t0 = time.perf_counter()
     scen = run_main_path(ref, hist, sim, t)
     torch.cuda.synchronize()
     api_s = time.perf_counter() - t0
-    qdm_counts = _counts()
+    qdm_counts = profiling.counters("launch.")
     assert scen.is_cuda and scen.dtype == torch.float32, (scen.device, scen.dtype)
     assert tuple(scen.shape) == (N_SITES, 365 * N_YEARS), tuple(scen.shape)
     assert bool(torch.isfinite(scen).all()), "non-finite output"
@@ -2638,12 +2625,12 @@ def main(argv=None) -> int:
 
     # 4b. the same data with one group: the adjust's lookup is K2
     torch.cuda.synchronize()
-    _reset_counts()
+    profiling.reset_counters()
     t0 = time.perf_counter()
     tscen = run_time_path(ref, hist, sim, t)
     torch.cuda.synchronize()
     api_s = time.perf_counter() - t0
-    time_counts = _counts()
+    time_counts = profiling.counters("launch.")
     assert tscen.is_cuda and tuple(tscen.shape) == (N_SITES, 365 * N_YEARS), (tscen.device, tuple(tscen.shape))
     assert bool(torch.isfinite(tscen).all()), "group='time': non-finite output"
     assert time_counts["interp_table_2d"] >= 1, f"group='time' path launched K2 {time_counts['interp_table_2d']} times"
@@ -2686,12 +2673,12 @@ def main(argv=None) -> int:
     paths = {}
     for window in (HEAVY_WINDOW, SMALL_WINDOW):
         torch.cuda.synchronize()
-        _reset_counts()
+        profiling.reset_counters()
         t0 = time.perf_counter()
         hscen = run_windowed_path(href, hhist, hsim, th, window)
         torch.cuda.synchronize()
         first_s = time.perf_counter() - t0
-        counts = paths[window] = _counts()
+        counts = paths[window] = profiling.counters("launch.")
         assert hscen.is_cuda and tuple(hscen.shape) == (HEAVY_SITES, 365 * HEAVY_YEARS), (hscen.device, tuple(hscen.shape))
         assert bool(torch.isfinite(hscen).all()), f"window {window}: non-finite output"
         need = ("sort_rows_alternating", "build_levels", "fold_windows") if window >= 9 else ("sort_rows_alternating", "merged_window_rows")
@@ -2724,12 +2711,12 @@ def main(argv=None) -> int:
     with xp.set_options(selection_on_tpu=True, selection_mode="gather"):
         for tag, arrays, ncheck in (("finite", sel_np, SEL_CHECK), ("NaN-masked", sel_masked, SEL_NAN_CHECK)):
             torch.cuda.synchronize()
-            _reset_counts()
+            profiling.reset_counters()
             t0 = time.perf_counter()
             sscen = run_windowed_path(*arrays, sth)
             torch.cuda.synchronize()
             first_s = time.perf_counter() - t0
-            counts = sel_counts[tag] = _counts()
+            counts = sel_counts[tag] = profiling.counters("launch.")
             assert sscen.is_cuda and tuple(sscen.shape) == (SEL_SITES, 365 * HEAVY_YEARS), (sscen.device, tuple(sscen.shape))
             r_np, h_np, s_np = arrays
             want_nan = np.isnan(s_np) | np.isnan(r_np).all(-1)[:, None] | np.isnan(h_np).all(-1)[:, None]
@@ -2757,12 +2744,12 @@ def main(argv=None) -> int:
     for mode, tag, arrays in ((None, "finite", sel_np), (None, "NaN-masked", sel_masked), ("emit", "finite", sel_np)):
         with xp.set_options(selection_on_tpu=True, **({} if mode is None else {"selection_mode": mode})):
             torch.cuda.synchronize()
-            _reset_counts()
+            profiling.reset_counters()
             t0 = time.perf_counter()
             escen = run_windowed_path(*arrays, sth)
             torch.cuda.synchronize()
             first_s = time.perf_counter() - t0
-        counts = _counts()
+        counts = profiling.counters("launch.")
         if mode is None:
             emit_counts[tag] = counts
         r_np, h_np, s_np = arrays
@@ -2786,18 +2773,18 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
         base = torch.cuda.memory_allocated(dev)
-        _reset_counts()
+        profiling.reset_counters()
         t0 = time.perf_counter()
         obj = xp.MBCn.train(mref, mhist, base_kws={"nquantiles": cfg["nq"], "group": xp.Grouper(*cfg["group"])}, n_iter=MBCN_ITERS, n_escore=-1)
         torch.cuda.synchronize()
         train_s = time.perf_counter() - t0
-        mb_train_counts[tag] = _counts()
+        mb_train_counts[tag] = profiling.counters("launch.")
         n_chunks = mbcn_chunks(cfg["sites"], cfg["group"])[0]
         assert mb_train_counts[tag]["interp_table_2d"] == n_chunks * MBCN_ITERS, f"{tag} train: launches {mb_train_counts[tag]}"
         scen = obj.adjust(msim, mref, mhist)
         torch.cuda.synchronize()
         both_s = time.perf_counter() - t0
-        counts = mb_counts[tag] = _counts()
+        counts = mb_counts[tag] = profiling.counters("launch.")
         peak = torch.cuda.max_memory_allocated(dev)
         line = check_mbcn(tag, cfg, mref, mhist, msim, obj, scen, counts)
         print(f"[multivariate] {tag} MBCn train+adjust on numpy {tuple(scen.data.shape)} f32 -> {scen.data.device}, group {cfg['group']}, nq {cfg['nq']}, "
@@ -2817,11 +2804,11 @@ def main(argv=None) -> int:
     nrot = rand_rot_matrix(MBCN_VARS, num=NPDF_ITERS, dtype=torch.float32, device=dev)     # the stream's generator on the card
     npdf_kw = dict(base_kws={"nquantiles": 20, "group": "time.month"}, n_iter=NPDF_ITERS, n_escore=0)
     torch.cuda.synchronize()
-    _reset_counts()
+    profiling.reset_counters()
     with xp.set_options(extra_output=True):
         nout = xp.NpdfTransform.adjust(nref, nhist, nsim, rot_matrices=nrot, **npdf_kw)
         torch.cuda.synchronize()
-        npdf_counts = _counts()
+        npdf_counts = profiling.counters("launch.")
         with xp.set_options(device="cpu"):
             ncpu = xp.NpdfTransform.adjust(nref, nhist, nsim, rot_matrices=nrot.cpu(), **npdf_kw)
     assert nout["scen"].data.is_cuda and bool(torch.isfinite(nout["scen"].data).all()) and bool(torch.isfinite(nout["escores"].data).all())
@@ -2843,11 +2830,11 @@ def main(argv=None) -> int:
     sl_counts = {}
     for cls, kw, tol in (("Scaling", dict(kind="+"), TOL), ("LOCI", dict(thresh="9 K"), dict(rtol=2e-5, atol=2e-5))):
         torch.cuda.synchronize()
-        _reset_counts()
+        profiling.reset_counters()
         trained = getattr(xp, cls).train(_da(ref_np, t, "ref"), _da(hist_np, t, "hist"), group="time.month", **kw)
         got = trained.adjust(_da(sim_np, t, "sim"), interp="linear").data
         torch.cuda.synchronize()
-        sl_counts[cls] = _counts()
+        sl_counts[cls] = profiling.counters("launch.")
         assert got.is_cuda and tuple(got.shape) == (N_SITES, 365 * N_YEARS) and bool(torch.isfinite(got).all()), f"{cls}: {got.device}, {tuple(got.shape)}"
         assert sl_counts[cls]["fma"] >= 1, f"{cls}: launches {sl_counts[cls]}"
         with xp.set_options(device="cpu"):
@@ -2871,7 +2858,7 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
         base = torch.cuda.memory_allocated(dev)
-        _reset_counts()
+        profiling.reset_counters()
         t0 = time.perf_counter()
         trained = train(data[0], data[1], t_run)
         torch.cuda.synchronize()
@@ -2879,7 +2866,7 @@ def main(argv=None) -> int:
         out = adjust(trained, data[2], t_run)
         torch.cuda.synchronize()
         both_s = time.perf_counter() - t0
-        counts = _counts()
+        counts = profiling.counters("launch.")
         peak = torch.cuda.max_memory_allocated(dev)
         scen = out["scen"].data
         S = data[0].shape[0]

@@ -1253,6 +1253,37 @@ def test_profiling_on_the_card(cuda, tmp_path):
     assert best > 0 and out.is_cuda
 
 
+@pytest.mark.parametrize("group", ["time.month", "dayofyear31"])
+def test_every_host_wait_of_a_public_pair_is_counted(cuda, group):
+    """Under ``set_sync_debug_mode("warn")`` a public train + adjust warns
+    once per host read (``sync.*``) and once per upload (a copy from
+    pageable memory synchronises the stream), and at no other site."""
+    import warnings
+
+    from xsdba_tpu_torch.utils import profiling
+
+    t = xp.date_range("2001-01-01", periods=365 * 4, freq="D", calendar="noleap")
+    rng = np.random.default_rng(5)
+    ref, hist, sim = (xp.DataArray(torch.as_tensor(rng.normal(280, 4, (16, len(t))).astype(np.float32), device=cuda),
+                                   ("site", "time"), {"time": t}, {"units": "K"}, "tas") for _ in range(3))
+    g = xp.Grouper("time.dayofyear", window=31) if group == "dayofyear31" else group
+    cls = xp.EmpiricalQuantileMapping if group == "dayofyear31" else xp.QuantileDeltaMapping
+    cls.train(ref, hist, nquantiles=20, group=g).adjust(sim, interp="linear")      # built and cached
+    torch.cuda.synchronize()
+    before = profiling.counters()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            cls.train(ref, hist, nquantiles=20, group=g).adjust(sim, interp="linear")
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    after = profiling.counters()
+    moved = {n: v - before.get(n, 0) for n, v in after.items()}
+    waits = sum(v for n, v in moved.items() if n.startswith("sync.")) + moved["upload.arrays"]
+    assert sum("synchronizing CUDA operation" in str(w.message) for w in seen) == waits > 0
+
+
 def test_selftest_on_the_card(cuda, capsys):
     from xsdba_tpu_torch import cli
 

@@ -58,6 +58,12 @@ ALLOWED = {
     ("options", "DEVICE", None): "the port's device option, re-exported beside the reference's options",
     ("utils.rng", "next_key", None): "JAX's Threefry key stream; the port draws from torch.Generators (C4)",
     ("utils.rng", "next_generator", None): "the port's stream of torch.Generators, one a device (C4)",
+    ("utils.profiling", "span", None): "the port's spans: record_function ranges and in-memory records while a torch.profiler session records",
+    ("utils.profiling", "calls", None): "the public calls the port's spans recorded, with their counter deltas",
+    ("utils.profiling", "reset_spans", None): "forgets the calls the port's spans recorded",
+    ("utils.profiling", "count", None): "the port's counters of host reads and uploads",
+    ("utils.profiling", "counters", None): "one snapshot of the port's counters, its kernel launch counters included",
+    ("utils.profiling", "reset_counters", None): "zeroes the port's counters",
     ("", "generate_sbck_classes", None): "the port's models package re-exports the SBCK gateway, so its top level resolves it",
     ("models", "generate_sbck_classes", None): "the port's models package re-exports the SBCK gateway (the JAX package's: models.sbck)",
     ("ops.quantile", "merge_slab", None): "the port's merge-engine slab build, public for its kernels' smoke run; JAX builds it inline",

@@ -24,6 +24,7 @@ from ..ops.interp import interp1d_table, interp_grouped_partitioned
 from ..ops.quantile import _static_ok, _static_safe, _windowed_chunks, grouped_nan_quantile, nan_quantile, windowed_group_quantile
 from ..ops.segment import gather_groups, grouped_rank
 from ..ops.selquant import selection_ok, selection_windowed_quantile
+from ..utils.profiling import span
 from ..utils.tensor import as_tensor
 
 __all__ = [
@@ -98,13 +99,14 @@ def qm_adjust_core(sim, hist_q, af, brackets, *, kind: str, interp: str, extrapo
 
     ``tables_compact``: the tables are quantile-trained (ascending, NaN rows
     whole) — skip the argsort NaN compaction (bit-identical there)."""
-    if hist_q.shape[-2] == 1:
-        af_t = interp1d_table(sim, hist_q[..., 0, :], af[..., 0, :], interp, extrapolation)
-    else:
-        af_t = interp_grouped_partitioned(
-            sim, hist_q, af, *brackets, interp, extrapolation, tables_compact=tables_compact,
-            steps=getattr(brackets, "steps", None),
-        )
+    with span("lookup"):
+        if hist_q.shape[-2] == 1:
+            af_t = interp1d_table(sim, hist_q[..., 0, :], af[..., 0, :], interp, extrapolation)
+        else:
+            af_t = interp_grouped_partitioned(
+                sim, hist_q, af, *brackets, interp, extrapolation, tables_compact=tables_compact,
+                steps=getattr(brackets, "steps", None),
+            )
     return apply_correction(sim, af_t, kind)
 
 
@@ -115,16 +117,17 @@ def qdm_adjust_core(sim, af, quantiles, brackets, gather_sim, group_idx, scatter
     Returns (scen, sim_q)."""
     sim_q = grouped_rank(sim, gather_sim, group_idx, scatter_slot, pct=True)
     G, nq = af.shape[-2:]
-    qtab = as_tensor(quantiles, dtype=sim.dtype, device=sim.device).expand(af.shape[:-2] + (G, nq))
-    if G == 1:
-        af_t = interp1d_table(sim_q, qtab[..., 0, :], af[..., 0, :], interp, extrapolation)
-    else:
-        # xq is the ascending quantile nodes and af is train output (whole-row
-        # NaNs only): the argsort compaction is the identity — skip it
-        af_t = interp_grouped_partitioned(
-            sim_q, qtab, af, *brackets, interp, extrapolation, tables_compact=True,
-            steps=getattr(brackets, "steps", None),
-        )
+    with span("lookup"):
+        qtab = as_tensor(quantiles, dtype=sim.dtype, device=sim.device).expand(af.shape[:-2] + (G, nq))
+        if G == 1:
+            af_t = interp1d_table(sim_q, qtab[..., 0, :], af[..., 0, :], interp, extrapolation)
+        else:
+            # xq is the ascending quantile nodes and af is train output (whole-row
+            # NaNs only): the argsort compaction is the identity — skip it
+            af_t = interp_grouped_partitioned(
+                sim_q, qtab, af, *brackets, interp, extrapolation, tables_compact=True,
+                steps=getattr(brackets, "steps", None),
+            )
     return apply_correction(sim, af_t, kind), sim_q
 
 

@@ -12,7 +12,8 @@ import torch
 from ..ops.interp import bracket_steps
 from ..utils.container import DataArray
 from ..utils.grouper import GroupIndexes
-from ..utils.tensor import as_tensor, default_device, input_tensor
+from ..utils.profiling import span
+from ..utils.tensor import as_tensor, default_device, input_tensor, upload
 
 __all__ = [
     "Brackets",
@@ -55,24 +56,26 @@ def device_brackets(gi: GroupIndexes, method: str = "linear", device=None) -> Br
     """Bracket partitions on ``device`` (CPU by default).
 
     Collapsed brackets (nearest method, integer fractional indexes like
-    dayofyear) drop the second partition entirely.
+    dayofyear) drop the second partition entirely.  The partitions are
+    built on the host at every call (span ``lower.brackets``).
     """
-    b = gi.bracket_partitions(method)
-    idx = lambda a: torch.as_tensor(a, dtype=torch.int64, device=device)  # noqa: E731
-    # collapsed brackets, or integer fractional indexes (dayofyear): the g1
-    # side always has zero weight, so skip its partition entirely
-    if bool((b["g0"] == b["g1"]).all()) or bool((b["w"] == 0).all()):
-        return Brackets(idx(b["part0"]), idx(b["g0"]), idx(b["slot0"]))
-    return Brackets(
-        idx(b["part0"]),
-        idx(b["g0"]),
-        idx(b["slot0"]),
-        idx(b["part1"]),
-        idx(b["g1"]),
-        idx(b["slot1"]),
-        torch.as_tensor(b["w"], device=device),
-        bracket_steps(b["g0"], b["g1"], b["w"], device),
-    )
+    with span("lower.brackets"):
+        b = gi.bracket_partitions(method)
+        idx = lambda a: upload(a, dtype=torch.int64, device=device)  # noqa: E731
+        # collapsed brackets, or integer fractional indexes (dayofyear): the g1
+        # side always has zero weight, so skip its partition entirely
+        if bool((b["g0"] == b["g1"]).all()) or bool((b["w"] == 0).all()):
+            return Brackets(idx(b["part0"]), idx(b["g0"]), idx(b["slot0"]))
+        return Brackets(
+            idx(b["part0"]),
+            idx(b["g0"]),
+            idx(b["slot0"]),
+            idx(b["part1"]),
+            idx(b["g1"]),
+            idx(b["slot1"]),
+            upload(b["w"], device=device),
+            bracket_steps(b["g0"], b["g1"], b["w"], device),
+        )
 
 
 _DEV_CACHE: dict = {}
@@ -125,7 +128,7 @@ def to_device_cached(a, device=None) -> torch.Tensor:
     if hit is not None:
         return hit
     misses += 1
-    out = torch.tensor(a, device=dev)  # a copy, also on the CPU
+    out = upload(a, device=dev, copy=True)  # a copy, also on the CPU
     try:
         weakref.finalize(owner, _DEV_CACHE.pop, key, None)
     except TypeError:
@@ -230,20 +233,22 @@ def grouped_var(
     name=None,
 ) -> DataArray:
     """Wrap a [..., G(, nq)] core output into a labeled DataArray."""
-    prop = "group" if gi.prop == "group" else gi.prop
-    dims = tuple(batch_dims) + (prop,)
-    coords = dict(batch_coords)
-    coords[prop] = gi.coord
-    if extra_dim is not None:
-        dims = dims + (extra_dim[0],)
-        coords[extra_dim[0]] = extra_dim[1]
-    return DataArray(values, dims, coords, attrs or {}, name)
+    with span("api.output"):
+        prop = "group" if gi.prop == "group" else gi.prop
+        dims = tuple(batch_dims) + (prop,)
+        coords = dict(batch_coords)
+        coords[prop] = gi.coord
+        if extra_dim is not None:
+            dims = dims + (extra_dim[0],)
+            coords[extra_dim[0]] = extra_dim[1]
+        return DataArray(values, dims, coords, attrs or {}, name)
 
 
 def scen_like(sim: DataArray, values, name: str = "scen") -> DataArray:
     """Wrap adjusted values (time-last layout) back into sim's dim order."""
-    simc = sim.move_dim_last("time")
-    out = DataArray(values, simc.dims, dict(simc.coords), dict(sim.attrs), name)
-    if simc.dims != sim.dims:
-        out = out.transpose(*sim.dims)
-    return out
+    with span("api.output"):
+        simc = sim.move_dim_last("time")
+        out = DataArray(values, simc.dims, dict(simc.coords), dict(sim.attrs), name)
+        if simc.dims != sim.dims:
+            out = out.transpose(*sim.dims)
+        return out

@@ -18,6 +18,7 @@ from ..utils.formatting import gen_call_string, update_history
 from ..utils.grouper import Grouper
 from ..utils.options import AS_DATASET, EXTRA_OUTPUT, get_option
 from ..utils.params import ParametrizableWithDataset
+from ..utils.profiling import span
 from ..utils.units import harmonize_units
 
 __all__ = ["Adjust", "BaseAdjustment", "TrainAdjust"]
@@ -41,18 +42,19 @@ def _package_output(raw, source: DataArray, call_str: str, units: str | None):
     ``bias_adjustment`` marker (reference adjustment.py:295-316, 395-409) —
     or the full / one-variable Dataset under the ``extra_output`` /
     ``as_dataset`` options."""
-    ds = Dataset({"scen": raw.rename("scen")}) if isinstance(raw, DataArray) else raw
-    scen: DataArray = ds["scen"]
-    scen.attrs.update(source.attrs)
-    scen.attrs["history"] = update_history(f"Bias-adjusted with {call_str}", source)
-    scen.attrs["bias_adjustment"] = call_str
-    if units is not None and "multivar" not in source.coords:
-        scen.attrs["units"] = units
-    if get_option(EXTRA_OUTPUT):
-        return ds
-    if get_option(AS_DATASET):
-        return Dataset({"scen": scen})
-    return scen
+    with span("api.output"):
+        ds = Dataset({"scen": raw.rename("scen")}) if isinstance(raw, DataArray) else raw
+        scen: DataArray = ds["scen"]
+        scen.attrs.update(source.attrs)
+        scen.attrs["history"] = update_history(f"Bias-adjusted with {call_str}", source)
+        scen.attrs["bias_adjustment"] = call_str
+        if units is not None and "multivar" not in source.coords:
+            scen.attrs["units"] = units
+        if get_option(EXTRA_OUTPUT):
+            return ds
+        if get_option(AS_DATASET):
+            return Dataset({"scen": scen})
+        return scen
 
 
 class BaseAdjustment(ParametrizableWithDataset):
@@ -122,40 +124,44 @@ class TrainAdjust(BaseAdjustment):
 
     @classmethod
     def train(cls, ref: DataArray, hist: DataArray, **kwargs) -> "TrainAdjust":
-        validate = not kwargs.pop("skip_input_checks", False)
-        kwargs = _normalize_group_kwarg(kwargs)
-        units = ref.units
-        if validate:
-            cls._check_inputs(ref, hist, group=kwargs.get("group"))
-            (ref, hist), units = cls._harmonize_units(ref, hist)
+        with span("train"):
+            validate = not kwargs.pop("skip_input_checks", False)
+            kwargs = _normalize_group_kwarg(kwargs)
+            units = ref.units
+            if validate:
+                with span("api.checks"):
+                    cls._check_inputs(ref, hist, group=kwargs.get("group"))
+                    (ref, hist), units = cls._harmonize_units(ref, hist)
 
-        if not cls._allow_diff_training_times:
-            cls._check_matching_times(ref, hist)
-        elif not cls._allow_diff_time_sizes:
-            cls._check_matching_time_sizes(ref, hist)
-            hist = hist.copy()
-            hist.coords["time"] = ref.time
+            if not cls._allow_diff_training_times:
+                cls._check_matching_times(ref, hist)
+            elif not cls._allow_diff_time_sizes:
+                cls._check_matching_time_sizes(ref, hist)
+                hist = hist.copy()
+                hist.coords["time"] = ref.time
 
-        ds, params = cls._train(ref, hist, **kwargs)
-        obj = cls(
-            _trained=True,
-            hist_calendar=hist.time.calendar if hist.time is not None else "standard",
-            train_units=units,
-            **params,
-        )
-        obj.set_dataset(ds)
-        return obj
+            ds, params = cls._train(ref, hist, **kwargs)
+            obj = cls(
+                _trained=True,
+                hist_calendar=hist.time.calendar if hist.time is not None else "standard",
+                train_units=units,
+                **params,
+            )
+            obj.set_dataset(ds)
+            return obj
 
     def adjust(self, sim: DataArray, *args, **kwargs):
-        validate = not kwargs.pop("skip_input_checks", False)
-        if validate:
-            if "group" in self:
-                self._check_inputs(sim, *args, group=self.group)
-            (sim, *args), _ = self._harmonize_units(sim, *args, target=self.train_units)
+        with span("adjust"):
+            validate = not kwargs.pop("skip_input_checks", False)
+            if validate:
+                with span("api.checks"):
+                    if "group" in self:
+                        self._check_inputs(sim, *args, group=self.group)
+                    (sim, *args), _ = self._harmonize_units(sim, *args, target=self.train_units)
 
-        raw = self._adjust(sim, *args, **kwargs)
-        call_str = f"{self!s}.adjust(sim, {gen_call_string('', **kwargs)[1:-1]})"
-        return _package_output(raw, sim, call_str, self.train_units)
+            raw = self._adjust(sim, *args, **kwargs)
+            call_str = f"{self!s}.adjust(sim, {gen_call_string('', **kwargs)[1:-1]})"
+            return _package_output(raw, sim, call_str, self.train_units)
 
     def set_dataset(self, ds: Dataset):
         super().set_dataset(ds)
@@ -181,28 +187,30 @@ class Adjust(BaseAdjustment):
 
     @classmethod
     def adjust(cls, ref: DataArray, hist: DataArray, sim: DataArray | None = None, **kwargs):
-        kwargs = _normalize_group_kwarg(dict(kwargs))
-        validate = not kwargs.pop("skip_input_checks", False)
+        with span("adjust"):
+            kwargs = _normalize_group_kwarg(dict(kwargs))
+            validate = not kwargs.pop("skip_input_checks", False)
 
-        if sim is None:
-            # reference adjustment.py:370-372: sim defaults to hist, marked.
-            sim = hist.copy()
-            sim.attrs["_is_hist"] = True
+            if sim is None:
+                # reference adjustment.py:370-372: sim defaults to hist, marked.
+                sim = hist.copy()
+                sim.attrs["_is_hist"] = True
 
-        if validate:
-            if "group" in kwargs:
-                cls._check_inputs(ref, hist, sim, group=kwargs["group"])
-            (ref, hist, sim), _ = cls._harmonize_units(ref, hist, sim)
+            if validate:
+                with span("api.checks"):
+                    if "group" in kwargs:
+                        cls._check_inputs(ref, hist, sim, group=kwargs["group"])
+                    (ref, hist, sim), _ = cls._harmonize_units(ref, hist, sim)
 
-        if not cls._allow_diff_time_sizes:
-            cls._check_matching_time_sizes(ref, hist, sim)
-        if not cls._allow_diff_training_times:
-            cls._check_matching_times(ref, hist)
+            if not cls._allow_diff_time_sizes:
+                cls._check_matching_time_sizes(ref, hist, sim)
+            if not cls._allow_diff_training_times:
+                cls._check_matching_times(ref, hist)
 
-        raw = cls._adjust(ref, hist, sim, **kwargs)
-        params = ", ".join(f"{k}={v!r}" for k, v in kwargs.items())
-        call_str = f"{cls.__name__}.adjust(ref, hist, sim, {params})"
-        return _package_output(raw, sim, call_str, ref.units)
+            raw = cls._adjust(ref, hist, sim, **kwargs)
+            params = ", ".join(f"{k}={v!r}" for k, v in kwargs.items())
+            call_str = f"{cls.__name__}.adjust(ref, hist, sim, {params})"
+            return _package_output(raw, sim, call_str, ref.units)
 
     @classmethod
     def _adjust(cls, ref, hist, sim, **kwargs):

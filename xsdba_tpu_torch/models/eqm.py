@@ -19,7 +19,7 @@ from ..ops.segment import gather_groups
 from ..processing import _adapt_freq_apply_core, _adapt_freq_grouped, _jitter_core
 from ..utils.container import DataArray, Dataset
 from ..utils.grouper import Grouper
-from ..utils.tensor import as_tensor, numpy_dtype, to_numpy
+from ..utils.tensor import as_tensor, numpy_dtype, to_numpy, upload
 from ..utils.units import convert_units_to
 from . import _algos
 from ._wrap import device_brackets, grouped_var, scen_like, to_compute, training_tensors
@@ -79,8 +79,8 @@ class EmpiricalQuantileMapping(TrainAdjust):
             quantiles = np.asarray(nquantiles)
         refa, hista, bdims, bcoords, gi, gi_t = training_tensors(group, ref, hist)
         quantiles = quantiles.astype(numpy_dtype(refa.dtype))
-        q_t = torch.as_tensor(quantiles, device=refa.device)
-        gather_idx = torch.as_tensor(gi_t.gather_idx, device=refa.device)
+        q_t = upload(quantiles, device=refa.device)
+        gather_idx = upload(gi_t.gather_idx, device=refa.device)
 
         hist_q_raw = None
         if max_tail_factor is not None:
@@ -240,10 +240,10 @@ class QuantileDeltaMapping(EmpiricalQuantileMapping):
         dev = sima.device
 
         af = as_tensor(self.ds["af"].data, device=dev)
-        quantiles = torch.as_tensor(np.asarray(self.ds["af"].coords["quantiles"]), dtype=sima.dtype, device=dev)
-        gather_idx = torch.as_tensor(gi_rank.gather_idx, device=dev)
-        group_idx = torch.as_tensor(gi_rank.group_idx, device=dev)
-        scatter_slot = torch.as_tensor(gi_rank.scatter_slot, device=dev)
+        quantiles = upload(np.asarray(self.ds["af"].coords["quantiles"]), dtype=sima.dtype, device=dev)
+        gather_idx = upload(gi_rank.gather_idx, device=dev)
+        group_idx = upload(gi_rank.group_idx, device=dev)
+        scatter_slot = upload(gi_rank.scatter_slot, device=dev)
 
         if _use_reference_interp(mode, gi):
             # reference mode consumes only the rank step from the device, then

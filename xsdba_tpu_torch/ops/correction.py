@@ -9,6 +9,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.profiling import span
 from ..utils.tensor import _check_leading, as_tensor
 
 __all__ = [
@@ -29,11 +30,12 @@ MULTIPLICATIVE = "*"
 
 def get_correction(x, y, kind: str):
     """y - x (additive) or y / x (multiplicative) — reference utils.py:131-143."""
-    if kind == ADDITIVE:
-        return y - x
-    if kind == MULTIPLICATIVE:
-        return y / x
-    raise ValueError("kind must be + or *.")
+    with span("correction"):
+        if kind == ADDITIVE:
+            return y - x
+        if kind == MULTIPLICATIVE:
+            return y / x
+        raise ValueError("kind must be + or *.")
 
 
 def apply_correction(x, factor, kind: str | None = None):
@@ -42,12 +44,13 @@ def apply_correction(x, factor, kind: str | None = None):
     factor's ``kind`` attribute (set by grouped trainers)."""
     if kind is None:
         kind = getattr(factor, "attrs", {}).get("kind")
-    _check_leading(np.shape(x)[:-1], np.shape(factor)[:-1])
-    if kind == ADDITIVE:
-        return x + factor
-    if kind == MULTIPLICATIVE:
-        return x * factor
-    raise ValueError("kind must be + or *.")
+    with span("correction"):
+        _check_leading(np.shape(x)[:-1], np.shape(factor)[:-1])
+        if kind == ADDITIVE:
+            return x + factor
+        if kind == MULTIPLICATIVE:
+            return x * factor
+        raise ValueError("kind must be + or *.")
 
 
 def invert(x, kind: str | None = None):

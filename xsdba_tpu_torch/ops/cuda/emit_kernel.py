@@ -31,6 +31,7 @@ import ctypes
 
 import torch
 
+from ...utils import profiling
 from . import _build
 
 __all__ = ["emit", "emit_reference", "launches"]
@@ -146,7 +147,9 @@ def emit_reference(svals, slab, clo, r_left, r_right, n, chunk: int, slots: int 
         bs = slice(b0, b0 + sites)
         for rk, kb in ((r_left, kbL), (r_right, kbR)):
             kb[bs], inside = _windows(rk[bs], clo[bs], chi[bs])
-            overflow = overflow or bool(inside.numel() and int(inside.max()) > slots)
+            if not overflow and inside.numel():
+                profiling.count("sync.emit_overflow")
+                overflow = int(inside.max()) > slots
     S = nq if overflow or slots >= nq else slots
     left = torch.zeros((B, G, nq), dtype=svals.dtype, device=dev)
     right = torch.zeros_like(left)

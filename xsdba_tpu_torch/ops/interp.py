@@ -36,7 +36,7 @@ import numpy as np
 import torch
 
 from ..utils.grouper import partition_by_group
-from ..utils.tensor import _check_leading, as_tensor, numpy_dtype, to_numpy
+from ..utils.tensor import _check_leading, as_tensor, numpy_dtype, to_numpy, upload
 from .cuda.fma_kernel import fma
 from .cuda.interp_kernel import MAX_NQ as KERNEL_MAX_NQ
 from .cuda.interp_kernel import METHODS as KERNEL_METHODS
@@ -406,7 +406,7 @@ def bracket_steps(g0, g1, w, device=None):
     """The per-time-step brackets as the bracketed kernel takes them: padded
     group ids ``g0``, ``g1`` [T] as contiguous int32 and the weight ``w`` [T]
     as contiguous float32, on ``device``."""
-    step = lambda a, dtype: as_tensor(a, dtype=dtype, device=device).contiguous()  # noqa: E731
+    step = lambda a, dtype: upload(a, dtype=dtype, device=device).contiguous()  # noqa: E731
     return step(g0, torch.int32), step(g1, torch.int32), step(w, torch.float32)
 
 

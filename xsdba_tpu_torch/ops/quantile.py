@@ -20,7 +20,9 @@ import weakref
 import numpy as np
 import torch
 
-from ..utils.tensor import as_tensor
+from ..utils import profiling
+from ..utils.profiling import span
+from ..utils.tensor import as_tensor, upload
 from .cuda.fma_kernel import fma
 
 __all__ = [
@@ -149,21 +151,23 @@ def grouped_nan_quantile(x, gather_idx, quantiles, alpha: float = 1.0, beta: flo
     ``group_chunk`` bounds peak memory: groups are processed ``group_chunk``
     at a time so only a [..., chunk, L] slice of the gather matrix is ever
     materialized.  By default a chunk keeps the slice near ~2^28 elements.
+    The span ``quantiles``.
     """
     from .segment import gather_groups
 
-    x = as_tensor(x)
-    gi = as_tensor(gather_idx, device=x.device)
-    G, L = gi.shape
-    batch = int(np.prod(x.shape[:-1], dtype=np.int64)) if x.ndim > 1 else 1
-    if group_chunk is None:
-        budget = 1 << 28
-        group_chunk = max(1, min(G, budget // max(batch * L, 1)))
-    outs = [
-        nan_quantile(gather_groups(x, gi[k : k + group_chunk]), quantiles, axis=-1, alpha=alpha, beta=beta)
-        for k in range(0, G, group_chunk)
-    ]
-    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=-2)
+    with span("quantiles"):
+        x = as_tensor(x)
+        gi = as_tensor(gather_idx, device=x.device)
+        G, L = gi.shape
+        batch = int(np.prod(x.shape[:-1], dtype=np.int64)) if x.ndim > 1 else 1
+        if group_chunk is None:
+            budget = 1 << 28
+            group_chunk = max(1, min(G, budget // max(batch * L, 1)))
+        outs = [
+            nan_quantile(gather_groups(x, gi[k : k + group_chunk]), quantiles, axis=-1, alpha=alpha, beta=beta)
+            for k in range(0, G, group_chunk)
+        ]
+        return outs[0] if len(outs) == 1 else torch.cat(outs, dim=-2)
 
 
 # ---------------------------------------------------------------------------
@@ -179,10 +183,12 @@ def _static_safe(*xs) -> bool:
     plan's host-known member count, so the extraction indices are host
     constants; all-NaN rows (ocean-masked sites) are masked explicitly.
     Rows with a partial NaN pattern (or any +/-inf) take the exact
-    dynamic-count path (reference ``ops/quantile.py:174-195``)."""
+    dynamic-count path (reference ``ops/quantile.py:174-195``).  Counted
+    in ``sync.static_safe``."""
     ok = torch.ones((), dtype=torch.bool, device=xs[0].device)
     for x in xs:
         ok = ok & torch.all(torch.isfinite(x).all(dim=-1) | torch.isnan(x).all(dim=-1))
+    profiling.count("sync.static_safe")
     return bool(ok)
 
 
@@ -219,20 +225,25 @@ def _static_extract_indices(counts, q_static, n, npdt, alpha, beta):
 def _static_flat_extract(merged, counts, q_static, alpha, beta):
     """Static-count extraction as one gather of host-computed indices from
     the flattened [..., G*n] merged rows, then the symmetric lerp
-    (reference ``ops/quantile.py:230-257``)."""
+    (reference ``ops/quantile.py:230-257``).  The indices' host lowering
+    and upload are the span ``lower.extract``."""
     G, n = merged.shape[-2:]
     npdt = np.float32 if merged.dtype == torch.float32 else np.float64
-    pi, ni, gamma, empty = _static_extract_indices(counts, q_static, n, npdt, alpha, beta)
-    nq = pi.shape[1]
+    dev = merged.device
+    with span("lower.extract"):
+        pi, ni, gamma, empty = _static_extract_indices(counts, q_static, n, npdt, alpha, beta)
+        nq = pi.shape[1]
+        rowbase = np.arange(G, dtype=np.int64)[:, None] * n
+        both = upload(np.concatenate([(rowbase + pi).ravel(), (rowbase + ni).ravel()]), device=dev)
+        gamma_t = upload(gamma, device=dev)
+        empty_t = upload(empty, device=dev) if empty.any() else None
     lead = merged.shape[:-2]
-    rowbase = np.arange(G, dtype=np.int64)[:, None] * n
-    both = torch.as_tensor(np.concatenate([(rowbase + pi).ravel(), (rowbase + ni).ravel()]), device=merged.device)
     vals = merged.reshape(lead + (G * n,))[..., both]
     left = vals[..., : G * nq].reshape(lead + (G, nq))
     right = vals[..., G * nq :].reshape(lead + (G, nq))
-    out = _lerp(left, right, torch.as_tensor(gamma, device=merged.device))
-    if empty.any():
-        out = torch.where(torch.as_tensor(empty, device=merged.device)[:, None], torch.nan, out)
+    out = _lerp(left, right, gamma_t)
+    if empty_t is not None:
+        out = torch.where(empty_t[:, None], torch.nan, out)
     return out
 
 
@@ -247,7 +258,7 @@ def _plan_device_arrays(plan, device):
     key = torch.device(device)
     hit = per_plan.get(key)
     if hit is None:
-        idx = lambda a: torch.as_tensor(a, dtype=torch.int64, device=key)  # noqa: E731
+        idx = lambda a: upload(a, dtype=torch.int64, device=key)  # noqa: E731
         hit = per_plan[key] = (idx(plan.w1_gather), idx(plan.edge_ids), idx(plan.edge_gather))
     return hit
 
@@ -303,35 +314,41 @@ def _windowed_group_quantile_core(x, plan, quantiles, *, static: bool, alpha: fl
     Gx, Ymax = plan.w1_gather.shape
     half, window = plan.half, plan.window
     G = Gx - 2 * half
-    slab, V, L = merge_slab(x, plan)
-    slab = sort_rows_alternating(slab)
-    if L:
-        merged = fold_windows(slab, build_levels(slab, L), window, G, ymax=Ymax)
-    else:
-        merged = merged_window_rows(slab, window, G, ymax=Ymax)
-    merged = merged.reshape(x.shape[:-1] + (G, merged.shape[-1]))
+    with span("quantiles.chunk"):
+        slab, V, L = merge_slab(x, plan)
+        with span("merge"):
+            slab = sort_rows_alternating(slab)
+            if L:
+                merged = fold_windows(slab, build_levels(slab, L), window, G, ymax=Ymax)
+            else:
+                merged = merged_window_rows(slab, window, G, ymax=Ymax)
+        merged = merged.reshape(x.shape[:-1] + (G, merged.shape[-1]))
 
-    q = as_tensor(quantiles, dtype=x.dtype, device=x.device)
-    if static:
-        q_static = np.asarray(quantiles.cpu() if isinstance(quantiles, torch.Tensor) else quantiles, np.float64)
-        out = _static_flat_extract(merged, plan.nv_host, q_static, alpha, beta)
-        # all-NaN site rows are static-safe only with an explicit mask: their
-        # merged rows are all +inf, which the static indices would read
-        out = torch.where(torch.isnan(x).all(dim=-1)[..., None, None], torch.nan, out)
-    else:
-        # sliding valid counts over the extended rows: nv[g] = sum V[g : g+window]
-        Vp = torch.nn.functional.pad(V, (0, max(window - 2 * half, 0)))
-        cs = torch.nn.functional.pad(torch.cumsum(Vp, dim=-1), (1, 0))
-        idx = torch.arange(G, device=x.device)
-        nv = cs[..., idx + window] - cs[..., idx]
-        out = _quantile_on_sorted(merged, nv, q, alpha, beta, sentinel="inf")
+        q = as_tensor(quantiles, dtype=x.dtype, device=x.device)
+        if static:
+            with span("quantiles.extract_static"):
+                if isinstance(quantiles, torch.Tensor):
+                    profiling.count("sync.quantiles_host")
+                    quantiles = quantiles.cpu()
+                out = _static_flat_extract(merged, plan.nv_host, np.asarray(quantiles, np.float64), alpha, beta)
+                # all-NaN site rows are static-safe only with an explicit mask: their
+                # merged rows are all +inf, which the static indices would read
+                out = torch.where(torch.isnan(x).all(dim=-1)[..., None, None], torch.nan, out)
+        else:
+            with span("quantiles.extract_dynamic"):
+                # sliding valid counts over the extended rows: nv[g] = sum V[g : g+window]
+                Vp = torch.nn.functional.pad(V, (0, max(window - 2 * half, 0)))
+                cs = torch.nn.functional.pad(torch.cumsum(Vp, dim=-1), (1, 0))
+                idx = torch.arange(G, device=x.device)
+                nv = cs[..., idx + window] - cs[..., idx]
+                out = _quantile_on_sorted(merged, nv, q, alpha, beta, sentinel="inf")
 
-    _, edge_ids, edge_gather = _plan_device_arrays(plan, x.device)
-    if edge_ids.numel():
-        from .segment import gather_groups
+        _, edge_ids, edge_gather = _plan_device_arrays(plan, x.device)
+        if edge_ids.numel():
+            from .segment import gather_groups
 
-        out[..., edge_ids, :] = nan_quantile(gather_groups(x, edge_gather), q, axis=-1, alpha=alpha, beta=beta)
-    return out
+            out[..., edge_ids, :] = nan_quantile(gather_groups(x, edge_gather), q, axis=-1, alpha=alpha, beta=beta)
+        return out
 
 
 def _windowed_max_chunk(plan) -> int:
@@ -344,16 +361,18 @@ def _windowed_max_chunk(plan) -> int:
 
 def _windowed_chunks(x, plan, quantiles, *, static: bool, alpha: float = 1.0, beta: float = 1.0):
     """:func:`_windowed_group_quantile_core` over the flattened batch in
-    chunks of at most :func:`_windowed_max_chunk` sites."""
+    chunks of at most :func:`_windowed_max_chunk` sites (the span
+    ``quantiles``, each chunk ``quantiles.chunk``)."""
     lead = x.shape[:-1]
     B = int(np.prod(lead, dtype=np.int64))
     chunk = _windowed_max_chunk(plan)
     core = lambda xc: _windowed_group_quantile_core(xc, plan, quantiles, static=static, alpha=alpha, beta=beta)  # noqa: E731
-    if x.ndim <= 1 or B <= chunk:
-        return core(x)
-    xf = x.reshape(B, x.shape[-1])
-    out = torch.cat([core(xf[i : i + chunk]) for i in range(0, B, chunk)], dim=0)
-    return out.reshape(lead + out.shape[1:])
+    with span("quantiles"):
+        if x.ndim <= 1 or B <= chunk:
+            return core(x)
+        xf = x.reshape(B, x.shape[-1])
+        out = torch.cat([core(xf[i : i + chunk]) for i in range(0, B, chunk)], dim=0)
+        return out.reshape(lead + out.shape[1:])
 
 
 def windowed_group_quantile(x, plan, quantiles, alpha: float = 1.0, beta: float = 1.0):
@@ -381,7 +400,8 @@ def windowed_group_quantile(x, plan, quantiles, alpha: float = 1.0, beta: float 
     from .selquant import selection_ok, selection_windowed_quantile
 
     x = as_tensor(x)
-    if selection_ok(plan, quantiles, x.device):
-        return selection_windowed_quantile(x, plan, quantiles, alpha=alpha, beta=beta)
-    static = _static_ok(plan, quantiles) and _static_safe(x)
-    return _windowed_chunks(x, plan, quantiles, static=static, alpha=alpha, beta=beta)
+    with span("quantiles"):
+        if selection_ok(plan, quantiles, x.device):
+            return selection_windowed_quantile(x, plan, quantiles, alpha=alpha, beta=beta)
+        static = _static_ok(plan, quantiles) and _static_safe(x)
+        return _windowed_chunks(x, plan, quantiles, static=static, alpha=alpha, beta=beta)

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.profiling import span
 from ..utils.tensor import as_tensor, nanmax, nanmin, nanstd
 from .rank import average_rank
 
@@ -59,17 +60,19 @@ def grouped_rank(x, gather_idx, group_idx, scatter_slot, pct: bool = False):
     Matches reference ``group.apply(u.rank, da, pct=True)`` (utils.py:575-638):
     average ranks within the group block; with ``pct`` the ranks are divided by
     the valid count then rescaled to span [0, 1] (utils.py:631-634).
+    The span ``rank``.
     """
-    v = gather_groups(x, gather_idx)           # [..., G, L]
-    rnk = average_rank(v, axis=-1)
-    if pct:
-        nvalid = (~torch.isnan(v)).sum(dim=-1, keepdim=True).to(rnk.dtype)
-        rnk = rnk / torch.where(nvalid == 0, 1, nvalid)
-        mn = nanmin(rnk, axis=-1, keepdims=True)
-        mx = nanmax(rnk, axis=-1, keepdims=True)
-        denom = torch.where(mx - mn == 0, 1, mx - mn)
-        rnk = mx * (rnk - mn) / denom
-    return scatter_back(rnk, group_idx, scatter_slot)
+    with span("rank"):
+        v = gather_groups(x, gather_idx)           # [..., G, L]
+        rnk = average_rank(v, axis=-1)
+        if pct:
+            nvalid = (~torch.isnan(v)).sum(dim=-1, keepdim=True).to(rnk.dtype)
+            rnk = rnk / torch.where(nvalid == 0, 1, nvalid)
+            mn = nanmin(rnk, axis=-1, keepdims=True)
+            mx = nanmax(rnk, axis=-1, keepdims=True)
+            denom = torch.where(mx - mn == 0, 1, mx - mn)
+            rnk = mx * (rnk - mn) / denom
+        return scatter_back(rnk, group_idx, scatter_slot)
 
 
 def grouped_rank_and_quantile(x, gather_idx, group_idx, scatter_slot, quantiles):

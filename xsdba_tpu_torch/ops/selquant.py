@@ -48,6 +48,7 @@ import weakref
 import numpy as np
 import torch
 
+from ..utils.tensor import upload
 from . import sort
 from .cuda import emit_kernel
 from .quantile import _lerp, _virtual_index
@@ -409,5 +410,5 @@ def plan_labels(plan, device):
     key = torch.device(device)
     hit = per_plan.get(key)
     if hit is None:
-        hit = per_plan[key] = torch.as_tensor(plan.sel_labels, dtype=torch.int32, device=key)
+        hit = per_plan[key] = upload(plan.sel_labels, dtype=torch.int32, device=key)
     return hit

@@ -28,6 +28,7 @@ from dataclasses import dataclass
 import numpy as np
 
 from .calendar import TimeIndex
+from .profiling import span
 
 __all__ = ["Grouper", "GroupIndexes", "parse_group", "partition_by_group"]
 
@@ -514,12 +515,16 @@ class Grouper:
         return len(self.get_coordinate(time))
 
     def indexes(self, time: TimeIndex) -> GroupIndexes:
-        """Lower to static index arrays (cached per TimeIndex)."""
+        """Lower to static index arrays (cached per TimeIndex; a build is
+        the span ``lower.indexes``)."""
         key = ("groupidx", self.name, self.window)
         cache = time._cache
-        if key in cache:
-            return cache[key]
+        if key not in cache:
+            with span("lower.indexes"):
+                cache[key] = self._lower(time)
+        return cache[key]
 
+    def _lower(self, time: TimeIndex) -> GroupIndexes:
         T = len(time)
         gidx = self.group_of(time)
         G = self.n_groups(time)
@@ -573,7 +578,7 @@ class Grouper:
         valid = (rows >= 0).sum(axis=1).astype(np.int32)
         plan = _window_merge_plan(gidx, rows.astype(np.int32), G, self.window, self.prop)
 
-        out = GroupIndexes(
+        return GroupIndexes(
             n_groups=G,
             group_idx=gidx.astype(np.int32),
             frac_idx=np.asarray(frac, dtype=np.float64),
@@ -585,8 +590,6 @@ class Grouper:
             window=self.window,
             merge_plan=plan,
         )
-        cache[key] = out
-        return out
 
 
 def period_blocks(time: TimeIndex, prop: str):

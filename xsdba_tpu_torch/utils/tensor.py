@@ -11,6 +11,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import profiling
+
 __all__ = [
     "as_tensor",
     "default_device",
@@ -23,6 +25,7 @@ __all__ = [
     "nanvar",
     "numpy_dtype",
     "to_numpy",
+    "upload",
 ]
 
 
@@ -35,6 +38,22 @@ def as_tensor(x, dtype=None, device=None) -> torch.Tensor:
     if not a.flags.writeable:  # read-only (broadcast views, loaded files): torch wants its own copy
         a = a.copy()
     return torch.as_tensor(a, dtype=dtype, device=device)
+
+
+def upload(a, dtype=None, device=None, copy: bool = False) -> torch.Tensor:
+    """A host array (numpy, or array-like) as a tensor on ``device`` (CPU by
+    default), counted in the ``upload.arrays`` and ``upload.bytes``
+    counters (the tensor's bytes, on every device; on CUDA a copy from
+    pageable host memory).  ``copy`` makes the tensor its own copy on the
+    CPU too (``torch.tensor``); otherwise a CPU tensor may share the
+    array's memory (``torch.as_tensor``).  A tensor is not an upload: it is
+    converted by :func:`as_tensor`, uncounted."""
+    if isinstance(a, torch.Tensor):
+        return as_tensor(a, dtype=dtype, device=device)
+    out = torch.tensor(a, dtype=dtype, device=device) if copy else as_tensor(a, dtype=dtype, device=device)
+    profiling.count("upload.arrays")
+    profiling.count("upload.bytes", out.numel() * out.element_size())
+    return out
 
 
 def default_device() -> torch.device:
@@ -131,8 +150,10 @@ def _check_leading(values_lead, trained_lead) -> None:
 
 
 def to_numpy(x) -> np.ndarray:
-    """Host numpy copy (or view) of a tensor or array-like."""
+    """Host numpy copy (or view) of a tensor or array-like; a tensor counts
+    in ``sync.to_numpy``."""
     if isinstance(x, torch.Tensor):
+        profiling.count("sync.to_numpy")
         return x.detach().cpu().numpy()
     return np.asarray(x)
 
