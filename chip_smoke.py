@@ -57,7 +57,10 @@ Phases, each reported on lines of its own:
    slots overflow, synthetic labels (``emit_edge_operands``: 1, 12, 365,
    366 and 1023 groups, windows 1, 5 and 31, wrapping intervals, an all-NaN
    row, a group with no valid value, +-0.0 ties, chunks of 8192 and of 192
-   values), and the selection path's first site chunk of its 448 rows;
+   values), and the selection path's first site chunk of its 448 rows; the
+   grouped rank against its twin by bit pattern, f32 and f64, on
+   :func:`rank_cases` wherever the groups fit the kernel and on the
+   headline QDM adjust's sim;
    K1 (``linear`` and ``nearest``) on tables with +inf holes
    (:func:`holey_tables`: quantile-trained tables with NaN factors inside,
    ROADMAP C31) at the monthly partition's long rows, the windowed adjust's
@@ -234,7 +237,8 @@ Phases, each reported on lines of its own:
    cache, so it uploads its numpy inputs as before the cache, and only
    phase 4c's cached adjust reuses a copy), each kernel against its twin
    (CUDA events, in turns; a kernel's sample is the mean of 10 calls queued
-   behind a spin of the card, so the host's launch cost stays out of it)
+   behind a spin of the card, so the host's launch cost stays out of it;
+   the grouped rank at the benchmark's monthly block, [4096, 54750])
    and against one PyTorch call computing the same function where there is
    one (timed the same way; K7's ``torch.sort`` sorts the keys alone,
    without the payload; K5's sorts the top level's runs, one of its four
@@ -269,7 +273,8 @@ path's, fma's the heavy path's, at its extraction's broadcast lerp; the
 small NpdfTransform's and its timed shape the windowed adjust's, the same
 as its ``linear`` row; ``K1 nearest (long rows)``: config 2's launches, at
 its monthly partition shape [512, 14, 4650]; the emission's launches are
-5b's finite emit run, its shape one site chunk of that run), each
+5b's finite emit run, its shape one site chunk of that run; the grouped
+rank's launches are the QDM path's), each
 with its least possible time on an H100 (``bound_ms``: the
 larger of its bytes over 3.35 TB/s and its operations over 67 TFLOP/s); the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device the
@@ -308,7 +313,7 @@ from xsdba_tpu_torch.models._wrap import device_brackets
 from xsdba_tpu_torch.ops import merge, sort
 from xsdba_tpu_torch.ops.clusters import cluster_maxima
 from xsdba_tpu_torch.ops.correction import equally_spaced_nodes
-from xsdba_tpu_torch.ops.cuda import _build, emit_kernel, fma_kernel, interp_kernel
+from xsdba_tpu_torch.ops.cuda import _build, emit_kernel, fma_kernel, interp_kernel, rank_kernel
 from xsdba_tpu_torch.ops.detrend import grouped_polyfit_trend
 from xsdba_tpu_torch.ops.fitting import gpd_fit_ml
 from xsdba_tpu_torch.ops.interp import _compact_nan_pairs
@@ -316,12 +321,14 @@ from xsdba_tpu_torch.ops.loess import loess_smoothing
 from xsdba_tpu_torch.ops.pca import pc_transform_matrix
 from xsdba_tpu_torch.ops.quantile import merge_slab
 from xsdba_tpu_torch.ops.rotation import rand_rot_matrix
-from xsdba_tpu_torch.ops.segment import gather_groups
+from xsdba_tpu_torch.ops.segment import gather_groups, grouped_rank_reference
 from xsdba_tpu_torch.ops.selquant import _emit_operands, default_sort_impl, max_chunk, plan_labels
 from xsdba_tpu_torch.parallel.dryrun import example_problem, monthly_qdm_step  # the headline recipe and step
 from xsdba_tpu_torch.utils import profiling
 
 N_SITES, N_YEARS, NQ = 512, 150, 50
+# the rank kernel's timed block: the benchmark's monthly QDM cell, 4096 sites
+RANK_SITES = 4096
 CHECK_SITES = 8
 # the emission's synthetic cases: group counts (1023 is the label packing's
 # largest) and values a row
@@ -403,6 +410,9 @@ KERNELS = {
     # the selection engine's dense emission: plain JAX in the reference, no Pallas kernel
     "emit": dict(name="emit", route="cuda", source=_SRC + "emit_kernel.cu",
                  replaces="xsdba_tpu/ops/selquant.py:336 (the emit mode's _window / _run / _chunk_emit / _assemble, plain JAX)"),
+    # QDM's rank of sim: plain JAX in the reference (gather, sort, cummax scans, scatter), no Pallas kernel
+    "grouped_rank": dict(name="grouped_rank", route="cuda", source=_SRC + "rank_kernel.cu",
+                         replaces="xsdba_tpu/ops/segment.py:53 (grouped_rank, plain JAX)"),
 }
 
 
@@ -1095,6 +1105,94 @@ def zero_tie_rows(B, T, seed=0, every=7):
     x[:, ::every] = rng.normal(0, 1, x[:, ::every].shape)
     x[rng.random((B, T)) < 0.01] = np.nan
     return x
+
+
+#: the rank kernel's cases (:func:`rank_cases`) and the plans' edges they cover
+RANK_CASES = ("monthly noleap 150 yr", "dayofyear + 31", "-1 padding at each plan's edge", "an all-NaN group",
+              "one repeated value", "heavy ties and signed zeros", "+inf runs then NaN (C1)", "ranks, not pct",
+              "leading dims", "time over 30 yr (the largest plan)", "time over 35 yr (past the plans: the twin)")
+
+
+def _random_groups(T, G, L, seed):
+    """Indexes of G groups over T <= L steps, each step in one group (the
+    first takes about 85 %) at a random slot of its row of L slots, the
+    other slots -1."""
+    rng = np.random.default_rng(seed)
+    p = np.full(G, 0.15 / max(G - 1, 1))
+    p[0] = 0.85 if G > 1 else 1.0
+    group_idx = rng.choice(G, T, p=p).astype(np.int32)
+    gather = np.full((G, L), -1, np.int32)
+    slot = np.zeros(T, np.int32)
+    for g in range(G):
+        members = np.flatnonzero(group_idx == g)
+        at = np.sort(rng.choice(L, len(members), replace=False))
+        gather[g, at] = members
+        slot[members] = at
+    return gather, group_idx, slot
+
+
+def rank_cases(dtype, sites=8, device="cpu", only=None):
+    """{label: (x, gather_idx, group_idx, scatter_slot, pct)}: the grouped
+    rank's cases (:data:`RANK_CASES`), x [sites, T] (``leading dims``:
+    [2, sites // 2, T]) in ``dtype`` on ``device``, the indexes as numpy
+    int32.  Values are N(280, 5) K rounded to 0.1 (ties in every group)
+    unless the case says otherwise; ``only`` builds one case."""
+    out = {}
+    rng = np.random.default_rng(20)
+    noleap = lambda years: xp.date_range("1951-01-01", periods=365 * years, freq="D", calendar="noleap")  # noqa: E731
+
+    def values(shape):
+        return np.round(rng.normal(280.0, 5.0, shape), 1)
+
+    def case(label, x, gi, pct=True):
+        if only is None or label == only:
+            out[label] = (torch.as_tensor(x, dtype=dtype, device=device), gi.gather_idx, gi.group_idx, gi.scatter_slot, pct)
+
+    t150 = noleap(150)
+    month = xp.Grouper("time.month").indexes(t150)
+    case("monthly noleap 150 yr", values((sites, len(t150))), month)
+    case("dayofyear + 31", values((max(sites // 2, 1), len(t150))), xp.Grouper("time.dayofyear", window=31).indexes(t150))
+    # L steps in two groups at random slots of rows of L slots, the rest -1:
+    # L at each plan's edge and one past it
+    for k, L in enumerate((1, 2, 1152, 1153, 2816, 2817, 4864, 4865, 11776)):
+        if only is None or only == "-1 padding at each plan's edge":
+            gather, gidx, slot = _random_groups(L, 2, L, seed=30 + k)
+            out[f"-1 padding at each plan's edge, L = {L}"] = (
+                torch.as_tensor(values((3, len(gidx))), dtype=dtype, device=device), gather, gidx, slot, True)
+    t30 = noleap(30)
+    m30 = xp.Grouper("time.month").indexes(t30)
+    x = values((sites, len(t30)))
+    x[0, m30.group_idx == 2] = np.nan                                 # site 0's Marches
+    x[1, m30.group_idx == 0] = np.nan
+    x[1, np.flatnonzero(m30.group_idx == 0)[5]] = 3.0                 # one valid value in the group
+    case("an all-NaN group", x, m30)
+    x = values((sites, len(t30)))
+    x[:, m30.group_idx == 3] = 1.5                                    # mx - mn == 0
+    x[1, np.flatnonzero(m30.group_idx == 4)[::2]] = np.nan
+    x[1, m30.group_idx == 4] = np.where(np.isnan(x[1, m30.group_idx == 4]), np.nan, -2.25)
+    case("one repeated value", x, m30)
+    x = rng.choice(np.array([-0.0, 0.0, -1.0, 1.0, 2.5]), (sites, len(t30)), p=[0.3, 0.3, 0.15, 0.15, 0.1])
+    x[rng.random(x.shape) < 0.02] = np.nan
+    case("heavy ties and signed zeros", x, m30)
+    x = values((sites, len(t30)))
+    for s in range(sites):
+        for g in range(12):
+            days = np.flatnonzero(m30.group_idx == g)
+            n_inf, n_nan = rng.integers(0, len(days) // 3, 2)
+            pick = rng.permutation(days)
+            x[s, pick[:n_inf]] = np.inf
+            x[s, pick[n_inf:n_inf + n_nan]] = np.nan
+            x[s, pick[n_inf + n_nan:n_inf + n_nan + 3]] = -np.inf
+    x[0, m30.group_idx == 5] = np.inf                                 # a group of +inf alone
+    x[0, np.flatnonzero(m30.group_idx == 6)] = np.where(np.arange((m30.group_idx == 6).sum()) % 2, np.inf, np.nan)
+    case("+inf runs then NaN (C1)", x, m30)
+    case("ranks, not pct", values((sites, len(t30))), xp.Grouper("time.dayofyear", window=5).indexes(t30), pct=False)
+    x = values((2, max(sites // 2, 1), len(t30)))
+    case("leading dims", x, m30)
+    case("time over 30 yr (the largest plan)", values((sites, len(t30))), xp.Grouper("time").indexes(t30))
+    t35 = noleap(35)
+    case("time over 35 yr (past the plans: the twin)", values((2, len(t35))), xp.Grouper("time").indexes(t35))
+    return out
 
 
 def dry_day_problem(n_sites, n_years, seed=14):
@@ -2007,8 +2105,9 @@ def a7_phase(dev, smi):
     back = processing.unstack_periods(stacked).data
     assert torch.equal(back, torch.from_numpy(sim).to(dev)), "stack then unstack is not the series"
     assert bool(torch.isfinite(unstacked.data).all()), "moving-window QDM: non-finite output"
-    # the linear adjust's blend is fused into the bracketed launch: no fma
-    assert counts["interp_bracketed"] >= 1 and not [k for k in counts if k != "interp_bracketed" and counts[k]], f"moving-window QDM: launches {counts}"
+    # the linear adjust's blend is fused into the bracketed launch: no fma; the rank of sim is one launch
+    assert counts["interp_bracketed"] >= 1 and counts["grouped_rank"] == 1, f"moving-window QDM: launches {counts}"
+    assert not [k for k in counts if k not in ("interp_bracketed", "grouped_rank") and counts[k]], f"moving-window QDM: launches {counts}"
     mcut = slice(0, MW_CHECK)
     with xp.set_options(device="cpu"):
         mcpu = moving_window(mw_train(ref[mcut], hist[mcut]), sim[mcut])[1].data
@@ -2437,6 +2536,23 @@ def main(argv=None) -> int:
         _hold_bits(err, k1_key, f"K1 {method} on shuffled tables, short rows nq={NQ}", *k1, vh[:8], *shuffled_tables(hxsh[:8], hysh[:8], seed=19), hnvh[:8], method)
     del hxs, hys, hnv, vedge
 
+    # the grouped rank against its twin by bit pattern (any NaN equal to any
+    # NaN), float32 and float64, on its cases wherever the groups fit the
+    # kernel (rank_cases: monthly and dayofyear + 31 groups over 150 yr, -1
+    # padding at each plan's edge, all-NaN and single-value groups, ±0.0
+    # ties, +inf runs before NaN, ranks without pct, leading dims, time over
+    # 30 yr), then on the headline QDM adjust's sim
+    for dtype in (torch.float32, torch.float64):
+        for label, (xr, *idx, pct) in rank_cases(dtype, device=dev).items():
+            if rank_kernel.fits("cuda", dtype, idx[0].shape[-1]):
+                didx = [torch.as_tensor(a, device=dev) for a in idx]
+                _hold_bits(err, "grouped_rank", f"grouped rank, {label}, {dtype}", rank_kernel.grouped_rank,
+                           grouped_rank_reference, xr, *didx, pct)
+    ridx = [torch.as_tensor(a, device=dev) for a in (gi.gather_idx, gi.group_idx, gi.scatter_slot)]
+    _hold_bits(err, "grouped_rank", "grouped rank, the headline QDM adjust's sim, monthly", rank_kernel.grouped_rank,
+               grouped_rank_reference, torch.from_numpy(sim_np).to(dev), *ridx, True)
+    del xr, didx
+
     # the fused multiply-add against its emulation by bit pattern (any NaN
     # equal to any NaN) on its edge cases, each layout class its kernel
     # serves (the rows kernel: contiguous and 16-byte aligned, a view one
@@ -2601,6 +2717,7 @@ def main(argv=None) -> int:
     # one adjust: both brackets' lookups and the blend in one bracketed launch, no partition lookup
     assert qdm_counts["interp_bracketed"] == 1 and qdm_counts["interp_table_3d"] == 0, f"QDM path launches {qdm_counts}"
     assert qdm_counts["fma"] >= 1, f"QDM path launches {qdm_counts}"
+    assert qdm_counts["grouped_rank"] == 1, f"QDM path launches {qdm_counts}"   # the rank of sim, one launch
     cut = slice(0, CHECK_SITES)
     want = run_main_path(*(torch.from_numpy(a[cut]) for a in (ref_np, hist_np, sim_np)), t)
     cpu_err = float((scen[cut].cpu() - want).abs().max())
@@ -2919,7 +3036,7 @@ def main(argv=None) -> int:
     # calls: ExtremeValues on config 2's DQM scen, PrincipalComponents at 512
     # sites, OTC / dOTC at one site; each held against the CPU port and timed
     ours = ("interp_rows_kernel", "interp_bracketed_kernel", "fma_rows_kernel", "fma_strided_kernel", "sort_rows_warp_kernel", "sort_rows_alt_kernel", "build_levels_kernel", "fold_windows_kernel",
-            "radix_tile_sort_kernel", "merge_pass_kernel", "emit_kernel")
+            "radix_tile_sort_kernel", "merge_pass_kernel", "emit_kernel", "grouped_rank_kernel")
     second_counts = second_order_phase(dev, ours, tp, (pref_np, phist_np, psim_np), dqm_runs["config 2"]["out"]["scen"].data)
     print(f"[second-order] launches by path (kernels launched at least once): {({p: {k: n for k, n in c.items() if n} for p, c in second_counts.items()})}", flush=True)
 
@@ -3141,6 +3258,10 @@ def main(argv=None) -> int:
     kb = dict(batch=KERNEL_BATCH)
     times = {"K1": _in_turns(lookup_short, lookup_short_twin, **kb), "K2": _in_turns(lookup2, lookup2_twin, **kb),
              "bracketed": _in_turns(bracketed, bracketed_twin, **kb)}
+    # the rank of sim at the benchmark's headline block (4096 sites x 150 yr, monthly: [4096, 12, 4650] groups)
+    rx = 280.0 + 5.0 * torch.randn(RANK_SITES, 365 * N_YEARS, device=dev)
+    times["grouped_rank"] = _in_turns(lambda: rank_kernel.grouped_rank(rx, *ridx, True),
+                                      lambda: grouped_rank_reference(rx, *ridx, True), **kb)
     # the heavy extraction's lerp, on the operands phase 3 held to the twin
     times["fma"] = _in_turns(lambda: fma_kernel.fma(fa, fb, fc), lambda: fma_kernel.fma_reference(fa, fb, fc), **kb)
     times["K7"] = _in_turns(lambda: sort.sort_rows_with_payload(key7, lab7), lambda: sort.sort_rows_with_payload_reference(key7, lab7), **kb)
@@ -3168,7 +3289,8 @@ def main(argv=None) -> int:
                                                 lambda: interp_kernel.interp_table_3d_reference(v, xs, ys, nv, "nearest"), **kb)
     shapes = {"K1 nearest (long rows)": f"{tuple(v.shape)} (config 2's monthly partition)", "K1 nearest": tuple(vh.shape), "K2 nearest": f"{tuple(rank_b[0].shape)}, nq {MBCN_B['nq']} (MBCn-b's ranks)", "K1": tuple(vh.shape), "K2": tuple(v2.shape), "bracketed": tuple(bargs[0].shape), "fma": f"{tuple(fa.shape)} * {tuple(fb.shape)}", "K3": tuple(slab.shape), "K5": tuple(ordered.shape), "K6": tuple(ordered.shape),
               "K4": tuple(ordered5.shape), "K7": tuple(key7.shape),
-              "emit": f"{tuple(eops[0].shape)}, {int(plan.fast_mask.shape[0])} groups, nq {NQ} (one site chunk of the selection path)"}
+              "emit": f"{tuple(eops[0].shape)}, {int(plan.fast_mask.shape[0])} groups, nq {NQ} (one site chunk of the selection path)",
+              "grouped_rank": f"{tuple(rx.shape)}, groups {tuple(gi.gather_idx.shape)} (the benchmark's monthly block)"}
     for k, (kern, twin) in times.items():
         print(f"[time] {k} {KERNELS[k]['name']} {shapes[k]}: kernel {_fmt(kern)}; plain twin {_fmt(twin)}", flush=True)
     # K1 on tables with +inf holes (ROADMAP C31: such a row is ranked by
@@ -3258,6 +3380,8 @@ def main(argv=None) -> int:
         # len groups alone, so the pairs are the valid counts n summed
         "emit": _bound(sum(a.numel() * a.element_size() for a in eops[:6]) + (2 * eops[3].numel() + eops[5].numel()) * f4,
                        int(eops[5].sum())),
+        # sim read and its ranks written once; a comparison sort's n log2 L a group
+        "grouped_rank": _bound(2 * rx.numel() * f4, rx.numel() * log2(gi.gather_idx.shape[-1])),
     }
     del folded, merged5
 
@@ -3280,11 +3404,13 @@ def main(argv=None) -> int:
         "K2 nearest": mb_counts["MBCn-b"]["interp_table_2d"],
         "K1 nearest (long rows)": dqm_runs["config 2"]["counts"]["interp_table_3d"],
         "emit": emit_counts["finite"]["emit"],
+        "grouped_rank": qdm_counts["grouped_rank"],
     }
     rows = [
         dict(KERNELS[k], launches=launches[k], max_abs_err=err[k], ms=times[k][0]["median_ms"], plain_ms=times[k][1]["median_ms"],
              bound_ms=bounds[k][0], bound_by=bounds[k][1], library_ms=library_ms.get(k))
-        for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "bracketed", "fma", "K1 nearest", "K2 nearest", "K1 nearest (long rows)", "emit")
+        for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "bracketed", "fma", "K1 nearest", "K2 nearest", "K1 nearest (long rows)", "emit",
+                  "grouped_rank")
     ]
     print(smi, flush=True)
     print(json.dumps({"kernels": rows}))

@@ -44,6 +44,8 @@ ALLOWED = {
     ("ops.cuda.emit_kernel", None, None): "the selection engine's dense emission as a CUDA kernel and its plain twin (plain JAX in the reference)",
     ("ops.cuda.fma_kernel", None, None): "x * y + z rounded once: XLA contracts it in the reference's compiled programs (C9)",
     ("ops.cuda.interp_kernel", None, None): "the wrappers of csrc/interp_kernel.cu (K1, K2, the bracketed lookup)",
+    ("ops.cuda.rank_kernel", None, None): "QDM's grouped rank as a CUDA kernel and its plain twin (plain JAX in the reference)",
+    ("ops.segment", "grouped_rank_reference", None): "the plain PyTorch grouped rank, the CUDA rank kernel's twin (ops/cuda/rank_kernel.py)",
     ("ops.merge", None, None): "the wrappers of csrc/merge_kernel.cu (K3-K6) and their plain twins",
     ("ops.sort", None, None): "the wrapper of csrc/sort_kernel.cu (K7) and its plain twin",
     ("utils.tensor", None, None): "the port's tensor helpers (devices, NaN reductions, the fma emulation); JAX has jnp",

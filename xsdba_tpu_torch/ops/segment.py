@@ -14,6 +14,7 @@ import torch
 
 from ..utils.profiling import span
 from ..utils.tensor import as_tensor, nanmax, nanmin, nanstd
+from .cuda import rank_kernel
 from .rank import average_rank
 
 __all__ = [
@@ -21,6 +22,7 @@ __all__ = [
     "grouped_mean",
     "grouped_rank",
     "grouped_rank_and_quantile",
+    "grouped_rank_reference",
     "grouped_std",
     "scatter_back",
 ]
@@ -60,19 +62,33 @@ def grouped_rank(x, gather_idx, group_idx, scatter_slot, pct: bool = False):
     Matches reference ``group.apply(u.rank, da, pct=True)`` (utils.py:575-638):
     average ranks within the group block; with ``pct`` the ranks are divided by
     the valid count then rescaled to span [0, 1] (utils.py:631-634).
-    The span ``rank``.
+    A CUDA tensor whose groups fit the hand-written kernel
+    (``ops/cuda/rank_kernel.py:fits``: float32 or float64, at most
+    ``MAX_ROW`` slots a group) takes it, one launch; any other takes
+    :func:`grouped_rank_reference`.  The span ``rank``.
     """
     with span("rank"):
-        v = gather_groups(x, gather_idx)           # [..., G, L]
-        rnk = average_rank(v, axis=-1)
-        if pct:
-            nvalid = (~torch.isnan(v)).sum(dim=-1, keepdim=True).to(rnk.dtype)
-            rnk = rnk / torch.where(nvalid == 0, 1, nvalid)
-            mn = nanmin(rnk, axis=-1, keepdims=True)
-            mx = nanmax(rnk, axis=-1, keepdims=True)
-            denom = torch.where(mx - mn == 0, 1, mx - mn)
-            rnk = mx * (rnk - mn) / denom
-        return scatter_back(rnk, group_idx, scatter_slot)
+        x = as_tensor(x)
+        if rank_kernel.fits(x.device.type, x.dtype, gather_idx.shape[-1]):
+            return rank_kernel.grouped_rank(x, gather_idx, group_idx, scatter_slot, pct)
+        return grouped_rank_reference(x, gather_idx, group_idx, scatter_slot, pct)
+
+
+def grouped_rank_reference(x, gather_idx, group_idx, scatter_slot, pct: bool = False):
+    """:func:`grouped_rank` in plain PyTorch, on any device and row length:
+    a gather into the NaN-padded [..., G, L] slab, ``average_rank`` (one
+    stable sort, two ``cummax`` scans, a scatter), the pct rescale, and
+    :func:`scatter_back`.  The CUDA kernel's twin."""
+    v = gather_groups(x, gather_idx)           # [..., G, L]
+    rnk = average_rank(v, axis=-1)
+    if pct:
+        nvalid = (~torch.isnan(v)).sum(dim=-1, keepdim=True).to(rnk.dtype)
+        rnk = rnk / torch.where(nvalid == 0, 1, nvalid)
+        mn = nanmin(rnk, axis=-1, keepdims=True)
+        mx = nanmax(rnk, axis=-1, keepdims=True)
+        denom = torch.where(mx - mn == 0, 1, mx - mn)
+        rnk = mx * (rnk - mn) / denom
+    return scatter_back(rnk, group_idx, scatter_slot)
 
 
 def grouped_rank_and_quantile(x, gather_idx, group_idx, scatter_slot, quantiles):

@@ -59,6 +59,7 @@ MODULE_COUNTERS = (
     ("launch.sort_rows_with_payload", "xsdba_tpu_torch.ops.sort", "launches", None),
     ("launch.fma", "xsdba_tpu_torch.ops.cuda.fma_kernel", "launches", None),
     ("launch.emit", "xsdba_tpu_torch.ops.cuda.emit_kernel", "launches", None),
+    ("launch.grouped_rank", "xsdba_tpu_torch.ops.cuda.rank_kernel", "launches", None),
     ("device_cache.misses", "xsdba_tpu_torch.models._wrap", "misses", None),
 )
 
