@@ -11,7 +11,14 @@ Every rotation's factor lookup is ``ops/interp.py:interp1d_table``: on float32
 CUDA tensors one launch of the row lookup kernel (K2,
 ``csrc/interp_kernel.cu``), whose ``nearest`` method is these schemes'
 default; the quantile lerps go through ``ops/cuda/fma_kernel.py:fma``.  The
-sorts, the rank's scans and scatter and the rotations are plain PyTorch.
+sorts, the rank's scans and scatter and the rotations are plain PyTorch; a
+float32 rotation on CUDA runs in full float32 whatever cuBLAS's TF32
+setting says (TF32 keeps 10 mantissa bits, and would move the first
+rotation's factors by about 1e-3, float32 by about 1e-5).
+
+MBCn's train and adjust loops are the spans ``npdft.train`` and
+``npdft.adjust`` (``utils/profiling.py``), and each rotation they run adds 1
+to the counter ``npdft.rotations``.
 """
 
 from __future__ import annotations
@@ -23,7 +30,8 @@ from ..ops.interp import interp1d_table, interp_on_quantiles_grouped
 from ..ops.quantile import _quantile_on_sorted, nan_quantile
 from ..ops.rank import rank_pct_rescaled, rank_pct_rescaled_with_sorted
 from ..ops.segment import gather_groups, grouped_rank, grouped_rank_and_quantile
-from ..utils.tensor import as_tensor, nanstd
+from ..utils.profiling import count, span
+from ..utils.tensor import as_tensor, full_float32_matmul, nanstd
 
 __all__ = ["npdf_transform_core", "npdft_adjust_core", "npdft_train_core", "standardize_lastaxis"]
 
@@ -38,13 +46,15 @@ def standardize_lastaxis(x):
 
 def _composed_rots(rots):
     """rot increments: rots[0], rots[i] @ rots[i-1].T for i>0."""
-    return torch.cat([rots[:1], torch.matmul(rots[1:], rots[:-1].transpose(-1, -2))], dim=0)
+    return torch.cat([rots[:1], _rotate(rots[1:], rots[:-1].transpose(-1, -2))], dim=0)
 
 
 def _rotate(rot, x, transpose: bool = False):
     """``rot @ x`` over the variable axis of x [..., V, L] (``rot.T @ x``
-    with ``transpose``): out[..., i, :] = sum_j rot[i, j] * x[..., j, :]."""
-    return torch.matmul(rot.transpose(-1, -2) if transpose else rot, x)
+    with ``transpose``): out[..., i, :] = sum_j rot[i, j] * x[..., j, :],
+    in full float32 on the card (TF32 off)."""
+    with full_float32_matmul():
+        return torch.matmul(rot.transpose(-1, -2) if transpose else rot, x)
 
 
 def _escore_stride(length: int, n_escore: int) -> int:
@@ -67,26 +77,28 @@ def npdft_train_core(ref, hist, rots, quantiles, *, interp: str, extrap: str, n_
     quantiles = as_tensor(quantiles, dtype=h.dtype, device=h.device)
     stride = _escore_stride(r.shape[-1], n_escore)
     af_qs, escores = [], []
-    for rot in _composed_rots(as_tensor(rots, dtype=h.dtype, device=h.device)):
-        r = _rotate(rot, r)
-        h = _rotate(rot, h)
-        ref_q = nan_quantile(r, quantiles, axis=-1)
-        # hist side needs BOTH quantiles and ranks of the same array — one
-        # shared value sort serves both (the sort is the iteration's
-        # dominant cost; numerically identical to nan_quantile + rank)
-        rnk, h_sorted, h_valid = rank_pct_rescaled_with_sorted(h, axis=-1)
-        hist_q = _quantile_on_sorted(h_sorted, h_valid, quantiles, 1.0, 1.0)
-        af_q = ref_q - hist_q
-        h = h + interp1d_table(rnk, quantiles.expand(hist_q.shape), af_q, interp, extrap)
-        # n_escore == 0 skips here (MBCn-train semantics, reference
-        # _adjustment.py:308,325: `if n_escore > 0`) while the
-        # NpdfTransform core below computes at 0 (adjustment.py:1034:
-        # `>= 0`, "0 for all") — the reference's own asymmetry, kept
-        if n_escore > 0:
-            escores.append(escore(r[..., ::stride], h[..., ::stride]))
-        else:
-            escores.append(torch.full(r.shape[:-2], torch.nan, dtype=r.dtype, device=r.device))
-        af_qs.append(af_q)
+    with span("npdft.train"):
+        for rot in _composed_rots(as_tensor(rots, dtype=h.dtype, device=h.device)):
+            count("npdft.rotations")
+            r = _rotate(rot, r)
+            h = _rotate(rot, h)
+            ref_q = nan_quantile(r, quantiles, axis=-1)
+            # hist side needs BOTH quantiles and ranks of the same array — one
+            # shared value sort serves both (the sort is the iteration's
+            # dominant cost; numerically identical to nan_quantile + rank)
+            rnk, h_sorted, h_valid = rank_pct_rescaled_with_sorted(h, axis=-1)
+            hist_q = _quantile_on_sorted(h_sorted, h_valid, quantiles, 1.0, 1.0)
+            af_q = ref_q - hist_q
+            h = h + interp1d_table(rnk, quantiles.expand(hist_q.shape), af_q, interp, extrap)
+            # n_escore == 0 skips here (MBCn-train semantics, reference
+            # _adjustment.py:308,325: `if n_escore > 0`) while the
+            # NpdfTransform core below computes at 0 (adjustment.py:1034:
+            # `>= 0`, "0 for all") — the reference's own asymmetry, kept
+            if n_escore > 0:
+                escores.append(escore(r[..., ::stride], h[..., ::stride]))
+            else:
+                escores.append(torch.full(r.shape[:-2], torch.nan, dtype=r.dtype, device=r.device))
+            af_qs.append(af_q)
     return torch.stack(af_qs, dim=-3), torch.stack(escores, dim=-1)
 
 
@@ -164,9 +176,11 @@ def npdft_adjust_core(sim, af_q, rots, quantiles, *, interp: str, extrap: str):
     af_q = as_tensor(af_q, device=s.device)
     rots = as_tensor(rots, dtype=s.dtype, device=s.device)
     quantiles = as_tensor(quantiles, dtype=s.dtype, device=s.device)
-    for i, rot in enumerate(_composed_rots(rots)):
-        afq = af_q[..., i, :, :]
-        s = _rotate(rot, s)
-        rnk = rank_pct_rescaled(s, axis=-1)
-        s = s + interp1d_table(rnk, quantiles.expand(afq.shape), afq, interp, extrap)
-    return _rotate(rots[-1], s, transpose=True)
+    with span("npdft.adjust"):
+        for i, rot in enumerate(_composed_rots(rots)):
+            count("npdft.rotations")
+            afq = af_q[..., i, :, :]
+            s = _rotate(rot, s)
+            rnk = rank_pct_rescaled(s, axis=-1)
+            s = s + interp1d_table(rnk, quantiles.expand(afq.shape), afq, interp, extrap)
+        return _rotate(rots[-1], s, transpose=True)

@@ -36,7 +36,8 @@ from ..processing import _adapt_freq_grouped, _jitter_core, _reordering_core
 from ..utils.container import DataArray, Dataset
 from ..utils.grouper import Grouper
 from ..utils.options import set_options
-from ..utils.tensor import as_tensor, nanstd, numpy_dtype
+from ..utils.profiling import span
+from ..utils.tensor import nanstd, numpy_dtype, upload
 from ..utils.units import convert_units_to
 from ._npdft import _escore_stride, _rotate, npdf_transform_core, npdft_adjust_core, npdft_train_core, standardize_lastaxis
 from ._wrap import to_device_cached
@@ -74,7 +75,7 @@ def _rotations(rot_matrices, n_features: int, n_iter: int, like: torch.Tensor) -
     if rot_matrices is None:
         return rand_rot_matrix(n_features, num=max(n_iter, 2), dtype=like.dtype, device=like.device)[:n_iter]
     rot = rot_matrices.data if isinstance(rot_matrices, DataArray) else rot_matrices
-    return as_tensor(rot, dtype=like.dtype, device=like.device)
+    return upload(rot, dtype=like.dtype, device=like.device)
 
 
 def _chunk_size(n_groups: int, batch: int, width: int) -> int:
@@ -137,7 +138,7 @@ class MBCn(TrainAdjust):
         V = refa.shape[0]
         rot = _rotations(rot_matrices, V, n_iter, refa)
         quantiles = quantiles.astype(numpy_dtype(refa.dtype))
-        q = torch.as_tensor(quantiles, device=refa.device)
+        q = upload(quantiles, device=refa.device)
 
         # Chunk over group blocks so windowed-doy training never materializes
         # the full [batch, G, V, window*years] tensor — each block trains
@@ -147,7 +148,7 @@ class MBCn(TrainAdjust):
         gi = group.indexes(ref.time)
         G, Lw = gi.gather_idx.shape
         chunk = _chunk_size(G, int(np.prod(refa.shape[:-1], dtype=np.int64)), Lw)
-        gidx = torch.as_tensor(gi.gather_idx, device=refa.device)
+        gidx = upload(gi.gather_idx, device=refa.device)
         kw = dict(interp=adj_kws["interp"], extrap=adj_kws["extrapolation"], n_escore=int(n_escore))
         parts = [_mbcn_train_block(refa, hista, gidx[g0 : g0 + chunk], rot, q, **kw) for g0 in range(0, G, chunk)]
         af_q = torch.cat([p[0] for p in parts], dim=-4)      # [..., G, I, V, nq]
@@ -213,7 +214,8 @@ class MBCn(TrainAdjust):
         sim = _to_vtime_layout(sim, pts_dim)
         ref = _to_vtime_layout(ref, pts_dim)
         hist = _to_vtime_layout(hist, pts_dim)
-        vnames = [str(v) for v in np.asarray(sim.coords[pts_dim])]
+        # a dimension without a coordinate is labelled 0..V-1, as in _train
+        vnames = [str(v) for v in np.asarray(sim.coords.get(pts_dim, np.arange(sim.sizes[pts_dim])))]
         base_kws_vars = {k: dict(v) for k, v in (base_kws_vars or {}).items()}
         for v in vnames:
             base_kws_vars.setdefault(v, {})
@@ -234,9 +236,9 @@ class MBCn(TrainAdjust):
         dev = sima.device
         refa = to_device_cached(ref.data, dev)
         hista = to_device_cached(hist.data, dev)
-        af_q_all = as_tensor(self.ds["af_q"].data, device=dev)
-        rots = as_tensor(self.ds["rot_matrices"].data, dtype=af_q_all.dtype, device=dev)
-        quantiles = as_tensor(np.asarray(self.ds["af_q"].coords["quantiles"]), dtype=af_q_all.dtype, device=dev)
+        af_q_all = upload(self.ds["af_q"].data, device=dev)
+        rots = upload(self.ds["rot_matrices"].data, dtype=af_q_all.dtype, device=dev)
+        quantiles = upload(np.asarray(self.ds["af_q"].coords["quantiles"]), dtype=af_q_all.dtype, device=dev)
 
         G, Lw = gi_sim.gather_idx.shape
         chunk = _chunk_size(G, int(np.prod(sima.shape[:-1], dtype=np.int64)), Lw)
@@ -246,19 +248,20 @@ class MBCn(TrainAdjust):
         scen = torch.zeros(sima.shape, dtype=af_q_all.dtype, device=dev)   # [V, ..., T] layout
         for g0 in range(0, G, chunk):
             g1 = min(g0 + chunk, G)
-            rows_ref = torch.as_tensor(gi.gather_idx[g0:g1], device=dev)
-            rows_sim = torch.as_tensor(gi_sim.gather_idx[g0:g1], device=dev)
+            rows_ref = upload(gi.gather_idx[g0:g1], device=dev)
+            rows_sim = upload(gi_sim.gather_idx[g0:g1], device=dev)
 
             # --- 1. univariate base adjustment per variable, per block ------
-            scen_block = torch.stack(
-                [
-                    _per_block_univariate(
-                        refa[iv], hista[iv], sima[iv], rows_ref, rows_sim, base_kws_vars[v], adj_kws, var_attrs.get(v, {}).get("units") or ""
-                    )
-                    for iv, v in enumerate(vnames)
-                ],
-                dim=-2,
-            )                                                   # [..., C, V, Lw]
+            with span("mbcn.univariate"):
+                scen_block = torch.stack(
+                    [
+                        _per_block_univariate(
+                            refa[iv], hista[iv], sima[iv], rows_ref, rows_sim, base_kws_vars[v], adj_kws, var_attrs.get(v, {}).get("units") or ""
+                        )
+                        for iv, v in enumerate(vnames)
+                    ],
+                    dim=-2,
+                )                                               # [..., C, V, Lw]
 
             # --- 2. npdft adjustment of standardized sim blocks -------------
             simb = torch.movedim(gather_groups(sima, rows_sim), 0, -2)   # [..., C, V, Lw]
@@ -277,8 +280,8 @@ class MBCn(TrainAdjust):
             # --- 4. write back window centers for this chunk's groups -------
             r2 = torch.movedim(reordered, -2, 0)                # [V, ..., C, Lw]
             steps = np.nonzero((group_idx >= g0) & (group_idx < g1))[0]
-            at = torch.as_tensor(steps, device=dev)
-            scen[..., at] = r2[..., torch.as_tensor(group_idx[steps] - g0, device=dev), torch.as_tensor(slot[steps], device=dev)]
+            at = upload(steps, device=dev)
+            scen[..., at] = r2[..., upload(group_idx[steps] - g0, device=dev), upload(slot[steps], device=dev)]
 
         out = DataArray(scen, sim.dims, dict(sim.coords), dict(sim.attrs), "scen")
         if sim.dims != orig_dims:
@@ -305,7 +308,7 @@ def _per_block_univariate(refa, hista, sima, rows_ref, rows_sim, base_kws, adj_k
     if kws:
         raise NotImplementedError(f"Unsupported base_kws_vars options: {sorted(kws)}")
 
-    q = as_tensor(nquantiles, dtype=refa.dtype, device=refa.device)
+    q = upload(nquantiles, dtype=refa.dtype, device=refa.device)
     if jitter_under is not None:
         lo = convert_units_to(jitter_under, units)
         refa, hista, sima = (_jitter_core(a, lo, None, None) for a in (refa, hista, sima))

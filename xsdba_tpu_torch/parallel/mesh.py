@@ -26,7 +26,7 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tensor
 
-from ..utils.tensor import as_tensor, default_device
+from ..utils.tensor import as_tensor, default_device, full_float32_matmul
 
 __all__ = [
     "site_mesh",
@@ -148,12 +148,8 @@ def _local(x, mesh: DeviceMesh, placements):
 def _matmul(a, b):
     """``a @ b`` in full float32 on the card (TF32 off), as the reference's
     products run at HIGHEST precision."""
-    tf32 = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
+    with full_float32_matmul():
         return torch.matmul(a, b)
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = tf32
 
 
 def _all_reduce(x, op, group):

@@ -33,6 +33,7 @@ from .ops.segment import gather_groups, scatter_back
 from .utils.container import DataArray, Dataset
 from .utils.formatting import update_history
 from .utils.grouper import GroupIndexes, Grouper, parse_group
+from .utils.profiling import span
 from .utils.rng import next_generator
 from .utils.tensor import as_tensor, input_tensor, nanmax, nanmin, nanstd
 from .utils.units import convert_units_to
@@ -317,12 +318,13 @@ def _reordering_core(ref, sim):
     same integers as ``argsort(argsort(ref))``, without the second sort).
     NaNs sort last, ties keep their order (both sorts are stable, as the
     reference's ``jnp.sort`` is), and -0.0 ties with +0.0, so each zero
-    keeps its sign where the reference puts it."""
-    sim_sorted = torch.sort(sim, dim=-1, stable=True).values
-    perm = torch.argsort(ref, dim=-1, stable=True)
-    pos = torch.arange(ref.shape[-1], device=ref.device).expand(perm.shape)
-    order = torch.empty_like(perm).scatter_(-1, perm, pos)
-    return torch.gather(sim_sorted, -1, order)
+    keeps its sign where the reference puts it.  The span ``reorder``."""
+    with span("reorder"):
+        sim_sorted = torch.sort(sim, dim=-1, stable=True).values
+        perm = torch.argsort(ref, dim=-1, stable=True)
+        pos = torch.arange(ref.shape[-1], device=ref.device).expand(perm.shape)
+        order = torch.empty_like(perm).scatter_(-1, perm, pos)
+        return torch.gather(sim_sorted, -1, order)
 
 
 def reordering(ref: DataArray, sim: DataArray, group: str | Grouper = "time") -> DataArray:

@@ -29,7 +29,7 @@ from .models._wrap import grouped_var
 from .ops.segment import gather_groups
 from .utils.container import DataArray
 from .utils.grouper import Grouper, period_blocks
-from .utils.tensor import input_tensor, nanmax, nanmin, nanstd, nanvar
+from .utils.tensor import full_float32_matmul, input_tensor, nanmax, nanmin, nanstd, nanvar
 from .utils.units import convert_units_to
 
 __all__ = [
@@ -523,12 +523,8 @@ def _pairwise_spearman(x):
     r = average_rank(x, axis=-1)
     r = r - torch.nanmean(r, dim=-1, keepdim=True)
     r0 = torch.where(torch.isnan(r), 0.0, r)
-    tf32 = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
+    with full_float32_matmul():
         cov = r0 @ r0.T
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = tf32
     d = torch.sqrt(torch.diagonal(cov))
     return cov / (d[:, None] * d[None, :])
 

@@ -8,6 +8,8 @@ to the ``device`` option's device (:func:`input_tensor`).
 
 from __future__ import annotations
 
+from contextlib import contextmanager
+
 import numpy as np
 import torch
 
@@ -17,6 +19,7 @@ __all__ = [
     "as_tensor",
     "default_device",
     "fma_emulated",
+    "full_float32_matmul",
     "input_tensor",
     "nanmax",
     "nanmin",
@@ -38,6 +41,19 @@ def as_tensor(x, dtype=None, device=None) -> torch.Tensor:
     if not a.flags.writeable:  # read-only (broadcast views, loaded files): torch wants its own copy
         a = a.copy()
     return torch.as_tensor(a, dtype=dtype, device=device)
+
+
+@contextmanager
+def full_float32_matmul():
+    """cuBLAS's float32 products in full float32 inside the block (TF32
+    off), as the reference's run at HIGHEST precision; the setting is put
+    back after it."""
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
 
 
 def upload(a, dtype=None, device=None, copy: bool = False) -> torch.Tensor:
